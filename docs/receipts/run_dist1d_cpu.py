@@ -58,7 +58,7 @@ def main(ndev: int):
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
          ).astype(np.complex64).reshape(1, 1, n)
     want = np.fft.fft(x[0, 0])
-    base = PlanParams(use_pallas=1, precision="stack6")
+    base = PlanParams()
 
     rows = []
     cases = [
@@ -67,8 +67,7 @@ def main(ndev: int):
         ("gather_v", base.replace(v=3), mesh),
         ("split_2048x512", base.replace(split_1d=(2048, 512)), mesh),
         ("split_512x2048", base.replace(split_1d=(512, 2048)), mesh),
-        ("unfused_xla_local", base.replace(use_pallas=0,
-                                           precision="highest"), mesh),
+        ("matmul_local", base.replace(engine="matmul"), mesh),
         ("single_device", base, None),
     ]
     for name, pp, m in cases:

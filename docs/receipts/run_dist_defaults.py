@@ -68,12 +68,12 @@ def main():
         t1o = min(4, max(1, nx // 2))
         t2o = min(4, max(1, nz // 4))
         old = PlanParams(p1=2, t1=t1o, t2=t2o, w1=min(2, t1o),
-                         w2=min(2, t2o), use_pallas=0, precision="highest")
+                         w2=min(2, t2o), engine="matmul")
         p_old = offt_tpu.plan(shape, "complex64", mesh=mesh, params=old)
         # (b) the shipped pick (wisdom/class heuristic)
         p_new = offt_tpu.plan(shape, "complex64", mesh=mesh)
         # (c) receipted best
-        best = PlanParams(use_pallas=0, precision="highest", **best_cfg)
+        best = PlanParams(engine="matmul", **best_cfg)
         p_best = offt_tpu.plan(shape, "complex64", mesh=mesh, params=best)
         ms_old = time_plan(p_old, x)
         ms_new = time_plan(p_new, x)

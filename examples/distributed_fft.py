@@ -1,4 +1,4 @@
-"""Distributed pencil FFT demo on a virtual CPU mesh (no TPUs needed).
+"""Distributed pencil FFT demo on a virtual CPU mesh (no GPUs needed).
 
 Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       JAX_PLATFORMS=cpu python examples/distributed_fft.py
@@ -15,8 +15,7 @@ os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
 import jax
 
-# demo runs on virtual CPU devices; set OFFT_EXAMPLE_REAL=1 for hardware
-# (then use planar plans -- some TPU runtimes cannot transfer complex)
+# demo runs on virtual CPU devices; set OFFT_EXAMPLE_REAL=1 for the GPUs
 if not os.environ.get("OFFT_EXAMPLE_REAL"):
     jax.config.update("jax_platforms", "cpu")
 

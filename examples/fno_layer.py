@@ -2,12 +2,12 @@
 
 A spectral-convolution layer (the FNO building block: rfft -> learned
 per-mode complex weights on the low modes -> irfft) whose parameters are
-trained with jax.grad THROUGH the offt-tpu r2c/c2r plans — the
-cotangent rules in plan/autodiff.py make the whole training step one
-jit-compiled device program. Learns a hidden linear operator (a known
+trained with jax.grad THROUGH the offt-tpu r2c/c2r plans — native
+autodiff makes the whole training step one jit-compiled device
+program. Learns a hidden linear operator (a known
 spectral multiplier) from input/output pairs; the fit must recover it.
 
-The MPI/C reference has no autodiff analogue; this is the TPU-first
+The MPI/C reference has no autodiff analogue; this is the JAX-side
 "neural operator / differentiable physics" surface of the framework.
 
 Run:  JAX_PLATFORMS=cpu python examples/fno_layer.py
@@ -74,7 +74,7 @@ def main():
     wi = jnp.zeros((modes,) * 3, jnp.float32)
     l0 = float(loss(wr, wi))
     lr = 2e-2 * n ** 3   # spectral-domain params see an N^3-scaled grad
-    for i in range(200):
+    for i in range(400):
         gr, gi = grad(wr, wi)
         wr = wr - lr * gr
         wi = wi - lr * gi

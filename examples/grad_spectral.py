@@ -3,11 +3,10 @@
 A blurred, noisy observation  y = irfft3(H * rfft3(s_true)) + noise  is
 inverted by gradient descent on  L(s) = ||blur(s) - y||^2 + lam*||s||^2,
 differentiating END-TO-END through the r2c and c2r plans with jax.grad
-(plan/autodiff.py). On TPU the loss pipeline runs the fused Pallas
-kernels; their cotangent rules are the adjoint plans, so the whole
-optimization is jit-compiled device code.
+(native autodiff: the plans are plain JAX), so the whole optimization is
+jit-compiled device code.
 
-The MPI/C reference has no autodiff analogue — this is the TPU-first
+The MPI/C reference has no autodiff analogue — this is the JAX-side
 "neural operator / differentiable physics" surface.
 
 Run:  JAX_PLATFORMS=cpu python examples/grad_spectral.py

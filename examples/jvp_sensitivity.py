@@ -1,13 +1,12 @@
-"""Forward-mode sensitivity through plans — the linear_call demo.
+"""Forward-mode sensitivity through plans — the jvp demo.
 
 A spectral diffusion solve  u(t) = irfft3( exp(-nu * |k|^2 * t) * rfft3(u0) )
 is differentiated with jax.jacfwd w.r.t. a FEW physical parameters
 (nu, t): forward mode costs one jvp pass per parameter regardless of the
 output's size (here a whole 3-D field), where reverse mode would need
-one vjp per output element. Plans support both modes (plan/autodiff.py:
-the planar paths are declared with jax.custom_derivatives.linear_call,
-so the jvp of the linear FFT is the FFT itself); the parameter
-dependence lives in the transfer function between the plans.
+one vjp per output element. Plans support both modes (native autodiff:
+the jvp of the linear FFT is the FFT itself); the parameter dependence
+lives in the transfer function between the plans.
 
 Self-verifies ∂u/∂nu and ∂u/∂t against central finite differences.
 

@@ -1,7 +1,7 @@
-"""Spectral filtering in the packed-Nyquist layout (single chip).
+"""Spectral filtering in the packed-Nyquist layout (single device).
 
-The packed half-spectrum (`plan(..., packed=True)`, DESIGN.md) keeps the
-frequency axis at exactly M = Nz/2 aligned lanes: plane 0 carries
+The packed half-spectrum (`plan(..., packed=True)`, kernels/rfft.py) keeps
+the frequency axis at exactly M = Nz/2 bins: plane 0 carries
 `X_0 + i*X_M`. A spectral pipeline r2c -> multiply -> c2r never needs the
 numpy (..., M+1) layout; the only care point is plane 0, where the two
 packed planes need *different* filter values g(.,.,0) and g(.,.,M):
@@ -13,7 +13,7 @@ packed planes need *different* filter values g(.,.,0) and g(.,.,M):
 Everything is one jitted function; planes 1..M-1 multiply pointwise.
 
 Run:  python examples/packed_spectral.py          (virtual CPU)
-      OFFT_EXAMPLE_REAL=1 python examples/...     (real TPU chip)
+      OFFT_EXAMPLE_REAL=1 python examples/...     (on the GPU)
 """
 
 import pathlib
@@ -35,8 +35,8 @@ import offt_tpu
 
 
 def main():
-    n = 256  # packed fast path needs M = n/2 to be a lane-tile multiple
-    nx = ny = 8 if jax.default_backend() != "tpu" else n
+    n = 256
+    nx = ny = 8 if jax.default_backend() == "cpu" else n
     shape = (nx, ny, n)
     m = n // 2
 
@@ -81,7 +81,7 @@ def main():
     err = np.linalg.norm(got - want) / np.linalg.norm(want)
     print(f"packed spectral low-pass: shape={shape} rel_err={err:.3e}")
     assert err < 1e-5
-    print("OK — the half-spectrum never left the packed 128-lane layout")
+    print("OK — the half-spectrum never left the packed layout")
 
 
 if __name__ == "__main__":

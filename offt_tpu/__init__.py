@@ -1,10 +1,11 @@
-"""offt-tpu: a TPU-native auto-tuned distributed FFT framework.
+"""offt-tpu: an auto-tuned distributed FFT framework in JAX.
 
 Re-expression of the capabilities of UMD's OFFT (rchyena/offt: auto-tuned
 parallel 3-D FFT over a 2-D pencil MPI decomposition with comm/compute
-overlap and an Active Harmony tuner) as an idiomatic JAX/XLA/Pallas library:
+overlap and an Active Harmony tuner) as an idiomatic JAX/XLA library:
 
-- local 1-D transforms: mixed-radix MXU-matmul stages (:mod:`offt_tpu.kernels`)
+- local transforms: XLA's FFT (cuFFT on the GPU) or a mixed-radix matmul
+  chain (:mod:`offt_tpu.kernels`)
 - distribution: ``jax.sharding.Mesh`` + ``shard_map`` + ``lax.all_to_all``
   slab/pencil plans (:mod:`offt_tpu.dist`)
 - plans & tuning: discrete parameter space + strategies + persistent plan
@@ -15,7 +16,7 @@ __version__ = "0.1.0"
 
 from . import fft
 from .kernels import fft_1d
-from .kernels.pallas_fft import pack_rfft3d, unpack_rfft3d
+from .kernels.rfft import pack_rfft3d, unpack_rfft3d
 from .plan.api import (
     Plan,
     fft2d,

@@ -1,5 +1,6 @@
 """Benchmark drivers and roofline model."""
 
-from .roofline import CHIPS, ChipSpec, Roofline, fft3d_roofline
+from .roofline import DEVICES, DeviceSpec, Roofline, device_spec, fft3d_roofline
 
-__all__ = ["CHIPS", "ChipSpec", "Roofline", "fft3d_roofline"]
+__all__ = ["DEVICES", "DeviceSpec", "Roofline", "device_spec",
+           "fft3d_roofline"]

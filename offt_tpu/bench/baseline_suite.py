@@ -1,12 +1,12 @@
-"""BASELINE.json config suite: run every target configuration at the scale
-the current hardware allows and emit one JSONL record per config.
+"""BASELINE.json config suite: run every target configuration and emit one
+JSONL record per config (median time over 10 calls, rel. error vs numpy).
 
-Configs (BASELINE.json):
+Configs (BASELINE.json), with the sizes this suite runs:
 1. 1D c2c N=2^20 fp32 — accuracy vs numpy (1e-6) + throughput
 2. 3D c2c 256^3 single-device
-3. 3D c2c 512^3 pencil (2-D mesh; virtual CPU mesh when no multi-chip)
-4. 3D r2c/c2r 1024^3 autotuned (scaled to fit single-chip HBM: 512^3)
-5. Batched 3D (64x256^3 — scaled to 8x128^3 to fit)
+3. 3D c2c pencil over every visible device (256^3 here)
+4. 3D r2c (stated 1024^3; run at 512^3)
+5. Batched 3D c2c (stated 64x256^3; run at 8x128^3)
 
 Run: python -m offt_tpu.bench.baseline_suite [--fast]
 """
@@ -17,27 +17,10 @@ import argparse
 import json
 import math
 import sys
-import time
 
 import numpy as np
 
-
-def _timeit(fn, args, k1=2, k2=10, tries=2):
-    import jax
-
-    def chain(k):
-        t0 = time.perf_counter()
-        res = None
-        for _ in range(k):
-            res = fn(*args)
-        leaf = res[0] if isinstance(res, tuple) else res
-        _ = float(leaf[(0,) * leaf.ndim])  # single-element readback
-        return time.perf_counter() - t0
-
-    chain(1)
-    ta = min(chain(k1) for _ in range(tries))
-    tb = min(chain(k2) for _ in range(tries))
-    return max((tb - ta) / (k2 - k1), 1e-9)
+from ..obs.profile import time_fn
 
 
 def _emit(rec):
@@ -47,7 +30,7 @@ def _emit(rec):
 def config1_1d(fast: bool):
     import jax
 
-    from offt_tpu.kernels import fft_1d
+    import offt_tpu
 
     n = 1 << (18 if fast else 20)
     rng = np.random.default_rng(0)
@@ -58,17 +41,16 @@ def config1_1d(fast: bool):
     re = jax.device_put(x.real.copy())
     im = jax.device_put(x.imag.copy())
 
-    # planar boundary: complex cannot leave some TPU runtimes
     @jax.jit
     def f2(r, i):
-        y = fft_1d(jax.lax.complex(r, i))
+        y = offt_tpu.fft.fft(jax.lax.complex(r, i))
         return jnp.real(y), jnp.imag(y)
 
     gr, gi = f2(re, im)
     got = np.asarray(gr) + 1j * np.asarray(gi)
     want = np.fft.fft(x)
     err = np.linalg.norm(got - want) / np.linalg.norm(want)
-    t = _timeit(f2, (re, im))
+    t = time_fn(f2, (re, im)).median
     _emit({"config": 1, "desc": f"1D c2c N=2^{n.bit_length()-1} fp32",
            "rel_err": float(err), "pass": bool(err < 1e-6),
            "t_ms": round(t * 1e3, 3)})
@@ -98,7 +80,7 @@ def _fft3d_planar_case(config, desc, shape, batch=0, mesh=None, real=False,
     else:
         want = np.fft.fftn(np.asarray(re) + 1j * np.asarray(im), axes=axes)
     err = np.linalg.norm(got - want) / np.linalg.norm(want)
-    t = _timeit(p._fn, args)
+    t = time_fn(p._fn, args).median
     total = math.prod(shape) * max(batch, 1)
     gflops = 5.0 * total * math.log2(math.prod(shape)) / t / 1e9
     _emit({"config": config, "desc": desc, "rel_err": float(err),
@@ -113,9 +95,10 @@ def main(argv=None):
     ns = ap.parse_args(argv)
     import jax
 
-    import offt_tpu  # noqa: F401
     from offt_tpu.dist import make_mesh
+    from offt_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     fast = ns.fast
     config1_1d(fast)
     n2 = 64 if fast else 256

@@ -1,51 +1,58 @@
-"""Roofline model for distributed 3-D FFTs on TPU.
+"""Roofline lower bound for 3-D FFTs on the card, keyed by ``device_kind``.
 
-Computes the HBM + ICI lower bound the BASELINE "≥70% of roofline" target
-refers to. Hardware numbers are per-chip defaults for known TPU
-generations; override via the dataclass for new parts.
+An FFT is bound by memory traffic, not arithmetic, on this card, so the
+bound is the larger of two times: device-memory traffic (at least one read
+and one write of every local element) and, on a mesh, the two pencil
+exchanges over NVLink. A device that is not in :data:`DEVICES` is an error:
+no peak is ever assumed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 
 @dataclasses.dataclass(frozen=True)
-class ChipSpec:
+class DeviceSpec:
     name: str
-    hbm_gbps: float            # HBM bandwidth, GB/s
-    ici_gbps: float            # per-link ICI bandwidth, GB/s (one direction)
-    ici_links: int             # usable links per chip
-    bf16_tflops: float         # peak MXU throughput
-
-    @property
-    def f32_matmul_tflops(self) -> float:
-        # precision=HIGHEST on bf16 MXUs costs ~6 passes
-        return self.bf16_tflops / 6.0
+    hbm_gbps: float     # device-memory bandwidth, GB/s
+    link_gbps: float    # NVLink to the other cards, one direction, GB/s
+    source: str
 
 
-CHIPS = {
-    "v5e": ChipSpec("v5e", hbm_gbps=819.0, ici_gbps=186.0, ici_links=4,
-                    bf16_tflops=197.0),
-    "v5p": ChipSpec("v5p", hbm_gbps=2765.0, ici_gbps=600.0, ici_links=6,
-                    bf16_tflops=459.0),
-    "v4": ChipSpec("v4", hbm_gbps=1228.0, ici_gbps=300.0, ici_links=6,
-                   bf16_tflops=275.0),
+# Published peaks, keyed by jax.Device.device_kind.
+DEVICES = {
+    "NVIDIA H100 80GB HBM3": DeviceSpec(
+        "H100 SXM", hbm_gbps=3350.0, link_gbps=450.0,
+        source="NVIDIA H100 data sheet, SXM5 part: 80 GB HBM3 at "
+               "3.35 TB/s; NVLink 900 GB/s total, 450 GB/s each way "
+               "(rates at the 700 W power limit)"),
 }
+
+
+def device_spec(device_kind: str) -> DeviceSpec:
+    """The peak table's row for ``device_kind``; ValueError when unknown."""
+    try:
+        return DEVICES[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; known: "
+            f"{sorted(DEVICES)}") from None
 
 
 @dataclasses.dataclass
 class Roofline:
     t_hbm_s: float
-    t_ici_s: float
-    t_mxu_s: float
+    t_link_s: float
 
     @property
     def t_bound_s(self) -> float:
-        # HBM and MXU serialize with each other only partially; the bound is
-        # max of the three resources assuming perfect overlap
-        return max(self.t_hbm_s, self.t_ici_s, self.t_mxu_s)
+        # perfect overlap of memory traffic and exchanges
+        return max(self.t_hbm_s, self.t_link_s)
+
+    @property
+    def bound(self) -> str:
+        return "hbm" if self.t_hbm_s >= self.t_link_s else "nvlink"
 
     def efficiency(self, measured_s: float) -> float:
         return self.t_bound_s / measured_s
@@ -53,36 +60,18 @@ class Roofline:
 
 def fft3d_roofline(
     shape: tuple[int, int, int],
-    chip: ChipSpec | str = "v5e",
+    device_kind: str,
     p1: int = 1,
     p2: int = 1,
     bytes_per_el: int = 8,          # complex64
-    hbm_passes: float = 3.0,        # fused per-axis kernels: 1 RW per axis
-    radix_sum: float | None = None, # MACs per element (sum of radices x 3)
+    hbm_passes: float = 1.0,        # read + write of every element
 ) -> Roofline:
-    """Per-chip time lower bound for one 3-D c2c transform."""
-    if isinstance(chip, str):
-        chip = CHIPS[chip]
+    """Per-card time lower bound for one 3-D c2c transform."""
+    dev = device_spec(device_kind)
     nx, ny, nz = shape
-    total = nx * ny * nz
-    p = p1 * p2
-    local = total / p
-
-    # HBM: each pass reads + writes every local element
-    t_hbm = hbm_passes * 2 * local * bytes_per_el / (chip.hbm_gbps * 1e9)
-
-    # ICI: two all_to_all phases; each moves (1 - 1/p_axis) of the local
-    # volume across the axis group
-    vol1 = local * bytes_per_el * (1 - 1 / max(p2, 1)) if p2 > 1 else 0.0
-    vol2 = local * bytes_per_el * (1 - 1 / max(p1, 1)) if p1 > 1 else 0.0
-    # bidirectional ring bandwidth over the links serving each mesh axis
-    axis_bw = chip.ici_gbps * max(chip.ici_links // 2, 1) * 1e9
-    t_ici = (vol1 + vol2) / axis_bw if p > 1 else 0.0
-
-    if radix_sum is None:
-        # balanced two-stage per axis ~ 2*sqrt(N) MACs/el per axis
-        radix_sum = sum(2 * math.sqrt(n) for n in shape)
-    # complex MAC = 8 real flops (4 mul + 4 add via 4-dot expansion)
-    t_mxu = local * radix_sum * 8 / (chip.f32_matmul_tflops * 1e12)
-
-    return Roofline(t_hbm_s=t_hbm, t_ici_s=t_ici, t_mxu_s=t_mxu)
+    local = nx * ny * nz / (p1 * p2)
+    t_hbm = hbm_passes * 2 * local * bytes_per_el / (dev.hbm_gbps * 1e9)
+    # two exchange phases; each sends (1 - 1/p_axis) of the local volume
+    vol = sum(local * bytes_per_el * (1 - 1 / q) for q in (p1, p2) if q > 1)
+    t_link = vol / (dev.link_gbps * 1e9)
+    return Roofline(t_hbm_s=t_hbm, t_link_s=t_link)

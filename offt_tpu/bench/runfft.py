@@ -20,6 +20,8 @@ import time
 
 import numpy as np
 
+from ..obs.profile import Timing, time_fn
+
 
 def _parse_args(argv=None):
     p = argparse.ArgumentParser(prog="offt-bench",
@@ -32,8 +34,8 @@ def _parse_args(argv=None):
                    choices=["offt", "xla", "numpy", "jaxdecomp"])
     p.add_argument("-R", "--r2c", action="store_true")
     p.add_argument("--packed", action="store_true",
-                   help="r2c/c2r in the packed-Nyquist half-spectrum "
-                        "layout (TPU-native, see DESIGN.md)")
+                   help="r2c/c2r in the packed half-spectrum layout "
+                        "(kernels/rfft.py)")
     p.add_argument("-b", "--batch", type=int, default=0,
                    help="leading batch dim (BASELINE config 5 style)")
     p.add_argument("-i", "--inverse", action="store_true")
@@ -53,59 +55,21 @@ def _parse_args(argv=None):
                         "exactly")
     p.add_argument("--log", default="", help="JSONL trial/event log path")
     # per-parameter overrides (reference run-fft.c:207-230 one flag per knob)
-    for knob in ("t1", "t2", "w1", "w2", "ry", "s1", "s2", "v",
-                 "block_batch", "slab_rows"):
-        p.add_argument(f"--{knob.replace('_', '-')}", type=int, default=None)
+    for knob in ("t1", "t2", "w1", "w2", "ry", "s1", "s2", "v"):
+        p.add_argument(f"--{knob}", type=int, default=None)
+    p.add_argument("--engine", default=None, choices=["xla", "matmul"],
+                   help="local transform engine")
     p.add_argument("--radix-z", default=None, help="e.g. 16,16")
     p.add_argument("--radix-y", default=None)
     p.add_argument("--radix-x", default=None)
-    p.add_argument("--x-tile", default=None,
-                   help="stride-padded x-kernel tile, e.g. 8,128")
     p.add_argument("--split-1d", default=None,
-                   help="four-step (n1,n2) split for long degenerate 1-D "
-                        "plans, e.g. 1024,1024 (kernels/fourstep.py)")
+                   help="(n1,n2) matrix view of the distributed long-1-D "
+                        "engine, e.g. 1024,1024 (dist/long1d.py)")
     p.add_argument("--verify", action="store_true",
                    help="check output vs numpy (golden input)")
     p.add_argument("--breakdown", action="store_true",
                    help="per-stage timing table (offt_print_time parity)")
-    p.add_argument("--in-place", action="store_true",
-                   help="capacity mode: aliased kernels + donated inputs "
-                        "(one planar pair's HBM footprint; c2c only)")
     return p.parse_args(argv)
-
-
-def _bench_chained(fn, args, reps):
-    import jax
-
-    def chain(k):
-        # re-issue the same inputs (the device queue serializes executions;
-        # feeding transposed-out shardings back into pinned in_shardings
-        # would error)
-        t0 = time.perf_counter()
-        res = None
-        for _ in range(k):
-            res = fn(*args)
-        leaf = res[0] if isinstance(res, tuple) else res
-        _ = float(leaf[(0,) * leaf.ndim])  # single-element readback
-        return time.perf_counter() - t0
-
-    chain(1)
-    # Tiny problems on a loaded host can jitter the (long - short)
-    # difference non-positive OR barely-positive; a barely-positive dt at
-    # k=8 yields a grossly inflated GFLOP/s, so require the difference to
-    # clear the observed per-draw jitter (spread of the min-filtered
-    # draws) before accepting, else escalate the chain length.
-    dt = 0.0
-    for k in (8, 32, 128):
-        ts = [chain(1) for _ in range(reps)]
-        tl = [chain(1 + k) for _ in range(reps)]
-        t_s, t_l = min(ts), min(tl)
-        diff = t_l - t_s
-        jitter = (max(ts) - t_s) + (max(tl) - t_l)
-        dt = diff / k
-        if diff > max(jitter, 1e-4):
-            return dt, True
-    return max(dt, 1e-9), False
 
 
 def main(argv=None):
@@ -128,27 +92,27 @@ def main(argv=None):
         fn = (np.fft.rfftn if ns.r2c else np.fft.fftn)
         arg = x.real.copy() if ns.r2c else x
         fn(arg)
-        t = min(_time_host(fn, arg) for _ in range(ns.reps))
+        t = Timing(tuple(_time_host(fn, arg) for _ in range(ns.reps)))
         _summary(ns, shape, flops, t, t_init=time.time() - t_init0)
         return 0
 
     import jax
 
     import offt_tpu
+    from offt_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if ns.algo == "jaxdecomp":
         # third-party distributed-FFT baseline (run-fft.c:312-353 compares
-        # FFTW-MPI/P3DFFT/2DECOMP in-process; SURVEY §6 sanctions
-        # jaxdecomp as the TPU-side analogue). Import-gated BEFORE any
-        # device work: the package is not in this image and cannot be
-        # installed (zero-egress); the branch exists so the comparison
-        # runs wherever jaxdecomp IS available.
+        # FFTW-MPI/P3DFFT/2DECOMP in-process; SURVEY §6 names jaxdecomp
+        # as the JAX-side analogue). Import-gated BEFORE any device work:
+        # the package is optional and off the main path; the branch runs
+        # wherever jaxdecomp is installed.
         try:
             import jaxdecomp  # noqa: F401
         except ImportError:
-            print("# jaxdecomp is not installed in this environment "
-                  "(zero-egress image, see PARITY.md); install it to "
-                  "enable this baseline", file=sys.stderr)
+            print("# jaxdecomp is not installed in this environment; "
+                  "install it to enable this baseline", file=sys.stderr)
             print(json.dumps({"algo": "jaxdecomp", "shape": list(shape),
                               "error": "jaxdecomp not installed"}))
             return 2
@@ -170,12 +134,10 @@ def main(argv=None):
         mesh = make_mesh(p1, p2)
 
     overrides = {k: getattr(ns, k) for k in
-                 ("t1", "t2", "w1", "w2", "ry", "s1", "s2", "v",
-                  "block_batch", "slab_rows")
+                 ("t1", "t2", "w1", "w2", "ry", "s1", "s2", "v", "engine")
                  if getattr(ns, k) is not None}
     for flag, key in (("radix_z", "radix_z"), ("radix_y", "radix_y"),
-                      ("radix_x", "radix_x"), ("x_tile", "x_tile"),
-                      ("split_1d", "split_1d")):
+                      ("radix_x", "radix_x"), ("split_1d", "split_1d")):
         v = getattr(ns, flag)
         if v:
             overrides[key] = tuple(int(t) for t in v.split(","))
@@ -206,8 +168,7 @@ def main(argv=None):
         p = offt_tpu.plan(shape[-3:], "complex64", mesh=mesh, real=ns.r2c,
                           inverse=ns.inverse, params=params, planar=True,
                           batch_dims=len(shape) - 3,
-                          packed=ns.packed and ns.r2c,
-                          in_place=ns.in_place, donate=ns.in_place)
+                          packed=ns.packed and ns.r2c)
         if ns.r2c and not ns.inverse:
             args = (re,)
         else:
@@ -216,18 +177,7 @@ def main(argv=None):
             args = (re, im)
         fn = p._fn
         t_init = time.time() - t_init0
-        if ns.in_place:
-            # donated inputs can't be re-issued; feed outputs back
-            # (c2c keeps shapes) inside one fori_loop program
-            from offt_tpu.obs.profile import time_fn_looped, fence
-
-            def body(c):
-                yr, yi = fn(*c)
-                return fence(yr, yr[..., :1]), yi
-
-            t, ok = time_fn_looped(jax.jit(body), args), True
-        else:
-            t, ok = _bench_chained(fn, args, ns.reps)
+        t = time_fn(fn, args, reps=ns.reps)
         if ns.verify:
             _verify(p, shape, ns)
         if ns.breakdown and not ns.r2c and not ns.batch:
@@ -251,12 +201,12 @@ def main(argv=None):
             return jnp.real(y), jnp.imag(y)
         args = (re, im)
         t_init = time.time() - t_init0
-        t, ok = _bench_chained(fn, args, ns.reps)
+        t = time_fn(fn, args, reps=ns.reps)
     else:  # xla
         import jax.numpy as jnp
 
         if ns.packed:
-            # the packed-Nyquist layout is offt-native; XLA has no analogue
+            # the packed layout is offt's own; XLA has no analogue
             print(json.dumps({"algo": "xla", "shape": list(shape),
                               "error": "packed layout has no XLA analogue"}))
             return 2
@@ -313,7 +263,7 @@ def main(argv=None):
         fn = jax.jit(fn, **jit_kw)
         t_init = time.time() - t_init0
         try:
-            t, ok = _bench_chained(fn, args, ns.reps)
+            t = time_fn(fn, args, reps=ns.reps)
         except Exception as e:  # pragma: no cover - backend-dependent
             # e.g. GSPMD's FFT partitioner rewrites a SHARDED-axis 1-D
             # transform via a dense DFT contraction — O(n * n/P) scratch,
@@ -324,11 +274,10 @@ def main(argv=None):
             print(json.dumps({"algo": "xla", "shape": list(shape),
                               "xla_fn": xla_fn, "error": str(e)[:200]}))
             return 2
-        _summary(ns, shape, flops, t, t_init=t_init, reliable=ok,
-                 xla_fn=xla_fn)
+        _summary(ns, shape, flops, t, t_init=t_init, xla_fn=xla_fn)
         return 0
 
-    _summary(ns, shape, flops, t, t_init=t_init, reliable=ok)
+    _summary(ns, shape, flops, t, t_init=t_init)
     return 0
 
 
@@ -344,7 +293,7 @@ def _verify(p, shape, ns):
         x = rng.standard_normal(shape).astype(np.float32)
         got = p(x)
         if ns.packed:   # unpack outside the timed region
-            from offt_tpu.kernels.pallas_fft import unpack_rfft3d
+            from offt_tpu.kernels.rfft import unpack_rfft3d
             got = unpack_rfft3d(*got)
         got = np.asarray(got[0]) + 1j * np.asarray(got[1])
         want = np.fft.rfftn(x, axes=(-3, -2, -1))
@@ -357,7 +306,7 @@ def _verify(p, shape, ns):
         sr = np.ascontiguousarray(spec.real)
         si = np.ascontiguousarray(spec.imag)
         if ns.packed:
-            from offt_tpu.kernels.pallas_fft import pack_rfft3d
+            from offt_tpu.kernels.rfft import pack_rfft3d
             sr, si = (np.asarray(v) for v in pack_rfft3d(sr, si))
         got = np.asarray(p((sr, si)))
         want = np.fft.irfftn(spec, s=shape[-3:], axes=(-3, -2, -1))
@@ -376,25 +325,25 @@ def _verify(p, shape, ns):
         sys.exit(1)
 
 
-def _summary(ns, shape, flops, t, t_init, reliable=True, **extra):
-    gflops = flops / t / 1e9
+def _summary(ns, shape, flops, t, t_init, **extra):
+    """One JSON line: median time and its spread, 5 N log2 N GFLOP/s,
+    and the device it ran on."""
+    gflops = flops / t.median / 1e9
+    device = {"platform": "cpu", "kind": "host numpy", "count": 1}
+    if ns.algo != "numpy":
+        import jax
+        d = jax.devices()
+        device = {"platform": d[0].platform, "kind": d[0].device_kind,
+                  "count": len(d)}
     rec = {
         "algo": ns.algo, "shape": list(shape),
         "kind": "r2c" if ns.r2c else "c2c",
-        "t_ms": round(t * 1e3, 4), "gflops": round(gflops, 2),
-        "t_init_s": round(t_init, 3), **extra,
+        "t_ms": t.median * 1e3, "spread": t.spread, "reps": len(t.times),
+        "gflops": gflops, "t_init_s": t_init, "device": device, **extra,
     }
-    if not reliable:
-        # every chain length jittered the loop difference below
-        # significance — flag the row rather than emitting a clamped or
-        # inflated number as if it were a measurement
-        print("# WARNING: loop-differenced timing did not separate from "
-              "jitter at any chain length; result is unreliable",
-              file=sys.stderr)
-        rec["unreliable"] = True
     print(f"# {ns.algo} {shape} {'r2c' if ns.r2c else 'c2c'} "
-          f"t_min={t * 1e3:.3f} ms t_init={t_init:.2f} s "
-          f"{gflops:.1f} GFLOP/s", file=sys.stderr)
+          f"t_median={t.median * 1e3:.3f} ms t_init={t_init:.2f} s "
+          f"{gflops:.1f} GFLOP/s on {device['kind']}", file=sys.stderr)
     print(json.dumps(rec))
 
 

@@ -3,22 +3,26 @@
 The reference is a distributed 3-D library whose 1-D engines are local
 FFTW sub-plans (``setup_p1d``, offt-compute.c:329-489); a single 1-D
 transform bigger than one device's appetite has no reference analogue.
-This module extends the four-step route (kernels/fourstep.py) across the
-mesh: view n = n1 * n2 as an (n1, n2) matrix, shard it over ALL mesh
-devices (the flattened (ROW, COL) axis, P = p1*p2), and ride the SAME
-two fused local kernels plus three tunable pencil exchanges:
+This module spreads the four-step factorization across the mesh: view
+n = n1 * n2 as an (n1, n2) matrix, shard it over ALL mesh devices (the
+flattened (ROW, COL) axis, P = p1*p2), and run two local axis transforms
+(the plan's engine, ``pencil.axis_fft``) between three tunable pencil
+exchanges:
 
     natural rows   (n1/P, n2)            [flat x, contiguous shards]
       --a2a #1 (split n2, concat n1)-->  (n1, n2/P)
-    step 1+2: FFT_n1 over sublanes + twiddle epilogue    [fused kernel]
+    step 1+2: FFT_n1 along axis -2, then the twiddle T[k1, j2]
       --a2a #2 (split n1, concat n2)-->  (n1/P, n2)
-    step 3+4: FFT_n2 over lanes, TRANSPOSED block writes -> (n2, n1/P)
+    step 3+4: FFT_n2 along axis -1, then a local transpose -> (n2, n1/P)
       --a2a #3 (split n2, concat n1)-->  (n2/P, n1)
     ravel = natural-order X              [flat X, contiguous shards]
 
-(with j = j1*n2 + j2 and k = k1 + n1*k2, the output matrix viewed
-(n2, n1) row-major IS the natural-order spectrum — fourstep.py module
-docstring — so contiguous row shards of it are contiguous shards of X).
+With j = j1*n2 + j2 and k = k1 + n1*k2,
+
+    X[k1 + n1*k2] = FFT_{j2->k2}( w^(j2*k1) * FFT_{j1->k1}(x)[k1, j2] )
+
+so the output matrix viewed (n2, n1) row-major IS the natural-order
+spectrum, and contiguous row shards of it are contiguous shards of X.
 
 Every exchange is ``pencil._transpose``, so the s (all_to_all vs
 ppermute ring) and v (all_gather+slice) strategy knobs apply unchanged;
@@ -45,32 +49,47 @@ flat; c2r inverts the same path. No reference analogue.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ..kernels import dft, fourstep
-from ..kernels import pallas_fft as pf
+from ..kernels import dft
 from ..plan.params import PlanParams
 from .mesh import COL, ROW, SLICE, mesh_shape
 from .pencil import _transpose, axis_fft
 
 
+def pick_split(n: int, split=None, divisor: int = 1):
+    """Choose the (n1, n2) matrix view with n1 * n2 == n, both factors
+    above 1 and divisible by ``divisor`` (the device count: the engine
+    shards both matrix axes, so its exchanges need equal static shards),
+    or None. An explicit ``split`` (the split_1d knob) is validated only.
+    Auto: the most balanced pair, small factor first."""
+    def _ok(a, b):
+        return a > 1 and b > 1 and a % divisor == 0 and b % divisor == 0
+
+    if split is not None:
+        n1, n2 = int(split[0]), int(split[1])
+        return (n1, n2) if n1 * n2 == n and _ok(n1, n2) else None
+    for d in range(int(np.sqrt(n)), 1, -1):
+        if n % d == 0 and _ok(d, n // d):
+            return d, n // d
+    return None
+
+
 def dist1d_split(mesh, n: int, params: PlanParams):
     """The (n1, n2) split a distributed 1-D plan would use on ``mesh``,
     or None when ineligible (no split with P | n1 and P | n2, a
-    multi-slice mesh, or a single device)."""
+    batch-group mesh, or a single device)."""
     if mesh is None or SLICE in mesh.axis_names:
         return None
     p1, p2 = mesh_shape(mesh)
     ptot = p1 * p2
     if ptot <= 1:
         return None
-    return fourstep.pick_split(n, params.split_1d, divisor=ptot)
+    return pick_split(n, params.split_1d, divisor=ptot)
 
 
 def natural_sharding(mesh, ndim: int) -> NamedSharding:
@@ -98,29 +117,11 @@ def _make_core(mesh, m: int, params: PlanParams, inverse: bool,
     p1, p2 = mesh_shape(mesh)
     ptot = p1 * p2
     n1, n2 = sp
-    n1l, n2l = n1 // ptot, n2 // ptot
     names = (ROW, COL)
 
-    words = pf._stack_words(params.precision)
-    rad1 = pf._pick_stages(n1, None, stacked=words)
-    rad2 = pf._pick_stages(n2, None, stacked=words)
-    # the fused kernels need whole 128-lane tiles on every LOCAL extent
-    # they block over (fourstep.py: step 1 tiles n2_local lanes, step 3
-    # tiles n1_local sublanes and writes n2-major)
-    fused = (bool(params.use_pallas) and dtype == "complex64"
-             and rad1 is not None and rad2 is not None
-             and n1 % 128 == 0 and n2l % 128 == 0 and n1l % 128 == 0
-             and os.environ.get("OFFT_FOURSTEP_FUSED", "1") != "0")
-
-    # twiddle scaling convention (kernels/fourstep.py): the fused kernels
-    # are scale-free, so the inverse 1/m (and any norm out_scale) folds
-    # into the twiddle table for free; the unfused fallback's axis_fft
-    # passes each apply numpy ifft semantics (1/n1 then 1/n2 = 1/m), so
-    # there the table carries out_scale only.
-    scale = out_scale
-    if fused and inverse:
-        scale = out_scale / m
-    t = dft.twiddles(n1, n2, np.complex128, inverse) * scale
+    # the axis_fft passes apply numpy ifft semantics (1/n1 then 1/n2 =
+    # 1/m), so the twiddle table carries only the norm's out_scale
+    t = dft.twiddles(n1, n2, np.complex128, inverse) * out_scale
     rdt = _real_dt(dtype)
     tw_host = (np.ascontiguousarray(t.real.astype(rdt)),
                np.ascontiguousarray(t.imag.astype(rdt)))
@@ -131,33 +132,13 @@ def _make_core(mesh, m: int, params: PlanParams, inverse: bool,
         xl = _transpose(xl, names, split_axis=a_c, concat_axis=a_r,
                         size=ptot, strategy=params.s1,
                         variant=params.v & 1)
-        lead = xl.shape[:-2]
-        b = 1
-        for d in lead:
-            b = b * int(d)
-        if fused:
-            zr, zi = fourstep.step12_planar(
-                jnp.real(xl).reshape(b, n1, n2l),
-                jnp.imag(xl).reshape(b, n1, n2l),
-                rad1, inverse, params.precision, (twr, twi),
-                block=params.block_batch)
-            z = lax.complex(zr, zi).reshape(lead + (n1, n2l))
-        else:
-            z = axis_fft(xl, a_r, inverse, None, params)
-            z = z * lax.complex(twr, twi)
+        z = axis_fft(xl, a_r, inverse, None, params)
+        z = z * lax.complex(twr, twi)
         z = _transpose(z, names, split_axis=a_r, concat_axis=a_c,
                        size=ptot, strategy=params.s1,
                        variant=params.v & 1)
-        if fused:
-            yr, yi = fourstep.step34_planar(
-                jnp.real(z).reshape(b, n1l, n2),
-                jnp.imag(z).reshape(b, n1l, n2),
-                rad2, inverse, params.precision,
-                block=params.block_batch)
-            y = lax.complex(yr, yi).reshape(lead + (n2, n1l))
-        else:
-            y = axis_fft(z, a_c, inverse, None, params)
-            y = jnp.swapaxes(y, -1, -2)
+        y = axis_fft(z, a_c, inverse, None, params)
+        y = jnp.swapaxes(y, -1, -2)
         return _transpose(y, names, split_axis=a_r, concat_axis=a_c,
                           size=ptot, strategy=params.s2,
                           variant=(params.v >> 1) & 1)

@@ -1,4 +1,4 @@
-"""Device mesh construction — the TPU replacement for the reference's
+"""Device mesh construction — the JAX replacement for the reference's
 process-grid builder ``offt_comm_malloc`` (/root/reference/offt-compute.c:57-315).
 
 Where the reference builds `p1 x p2` MPI groups by explicit rank lists
@@ -7,16 +7,14 @@ Where the reference builds `p1 x p2` MPI groups by explicit rank lists
 "col" are the phase-1 row-communicator all-to-alls, collectives over "row"
 are the phase-2 column ones.
 
-Grid <-> network mapping is a first-order distributed knob: the reference
-optionally remaps ranks onto the grid with ROTATE_RANKORDER
+The reference optionally remaps ranks onto the grid with ROTATE_RANKORDER
 (offt-compute.c:69-77,95-101 — default rank->(x=rank/p2, y=rank%p2)
-row-major; rotated rank->(x=rank%p1, y=rank/p1) column-major) because it
-decides whether each communicator's members are network neighbors. The TPU
-analogue decides whether the phase-1/phase-2 all_to_alls ride contiguous
-ICI rings: RANKORDER_AUTO asks ``mesh_utils.create_device_mesh`` to place
-the grid along the physical torus; RANKORDER_ROW / RANKORDER_COL are the
-reference's two explicit orders and tuner search points
-(``PlanParams.rankorder``).
+row-major; rotated rank->(x=rank%p1, y=rank/p1) column-major) because on
+a cluster it decides whether each communicator's members are network
+neighbours. The cards of one NVLink host all reach each other at the same
+rate, so the grid follows the algorithm alone: RANKORDER_AUTO is the plain
+row-major order; RANKORDER_ROW / RANKORDER_COL are the reference's two
+explicit orders and tuner search points (``PlanParams.rankorder``).
 """
 
 from __future__ import annotations
@@ -27,9 +25,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 ROW = "row"     # size p1: phase-2 communicator (reference comm2)
 COL = "col"     # size p2: phase-1 communicator (reference comm1)
-SLICE = "slice"  # multi-slice (DCN) axis: batch-parallel, never a pencil
+SLICE = "slice"  # batch-group axis: batch-parallel, never a pencil
 
-RANKORDER_AUTO = 0  # topology-aware placement (mesh_utils) / mesh as given
+RANKORDER_AUTO = 0  # row-major placement / mesh as given
 RANKORDER_ROW = 1   # device i -> (i // p2, i % p2): reference default order
 RANKORDER_COL = 2   # device i -> (i % p1, i // p1): ROTATE_RANKORDER
 
@@ -37,18 +35,7 @@ RANKORDER_COL = 2   # device i -> (i % p1, i // p1): ROTATE_RANKORDER
 def _grid_devices(devices, p1: int, p2: int, rankorder: int) -> np.ndarray:
     """Lay ``p1*p2`` devices onto the (ROW, COL) grid per ``rankorder``."""
     devices = list(devices)[: p1 * p2]
-    if rankorder == RANKORDER_AUTO:
-        # topology-aware: let mesh_utils place the grid along the physical
-        # ICI torus (device coords) so both mesh axes ride contiguous
-        # rings; falls back to row-major where no topology is exposed
-        # (CPU/virtual meshes are linear — the reshape IS the topology)
-        try:
-            from jax.experimental import mesh_utils
-            return np.asarray(
-                mesh_utils.create_device_mesh((p1, p2), devices=devices))
-        except Exception:
-            return np.asarray(devices).reshape(p1, p2)
-    if rankorder == RANKORDER_ROW:
+    if rankorder in (RANKORDER_AUTO, RANKORDER_ROW):
         return np.asarray(devices).reshape(p1, p2)
     if rankorder == RANKORDER_COL:
         return np.asarray(devices).reshape(p2, p1).T
@@ -60,7 +47,7 @@ def make_mesh(p1: int, p2: int | None = None, devices=None,
     """Build a (p1, p2) mesh. With p2=None, uses all devices: p2 = n // p1.
 
     ``rankorder`` picks the device->grid assignment (see module docstring);
-    the default is topology-aware on backends that expose device coords."""
+    the default is row-major."""
     if devices is None:
         devices = jax.devices()
     n = len(devices)
@@ -85,7 +72,7 @@ def with_rankorder(mesh: Mesh, rankorder: int) -> Mesh:
         return mesh
     if SLICE in mesh.axis_names:
         raise ValueError("rankorder re-gridding applies to (row, col) "
-                         "meshes only, not multi-slice meshes")
+                         "meshes only, not batch-group meshes")
     p1, p2 = mesh.shape[ROW], mesh.shape[COL]
     devices = sorted(mesh.devices.flat, key=lambda d: d.id)
     arr = _grid_devices(devices, p1, p2, rankorder)
@@ -96,15 +83,12 @@ def with_rankorder(mesh: Mesh, rankorder: int) -> Mesh:
 
 def make_multislice_mesh(slices: int, p1: int, p2: int | None = None,
                          devices=None) -> Mesh:
-    """Nested (slice, p1, p2) mesh for multi-slice TPU pods.
+    """Nested (slice, p1, p2) batch-group mesh.
 
-    The SLICE axis rides DCN (slow inter-slice network); the (ROW, COL)
-    axes ride ICI within each slice. The pencil all_to_alls only ever run
-    over ROW/COL, so NO FFT collective crosses DCN — the slice axis shards
-    a leading batch dim instead (each slice transforms its own batch
-    shard). Devices are grouped by their ``slice_index`` attribute when
-    the runtime exposes one (real multi-slice pods); otherwise contiguous
-    device blocks model the slices (CPU/virtual testing, SURVEY §4.5)."""
+    The SLICE axis shards a leading batch dim (each group of p1*p2
+    devices transforms its own batch shard); the pencil all_to_alls only
+    ever run over ROW/COL, inside one group. Groups are contiguous blocks
+    of ``devices``."""
     if devices is None:
         devices = jax.devices()
     n = len(devices)
@@ -116,37 +100,27 @@ def make_multislice_mesh(slices: int, p1: int, p2: int | None = None,
     if slices * p1 * p2 > n:
         raise ValueError(f"mesh {slices}x{p1}x{p2} needs "
                          f"{slices * p1 * p2} devices, have {n}")
-    idx = getattr(devices[0], "slice_index", None)
-    if idx is not None:
-        by_slice: dict[int, list] = {}
-        for d in devices:
-            by_slice.setdefault(d.slice_index, []).append(d)
-        groups = [by_slice[k][: p1 * p2] for k in sorted(by_slice)[:slices]]
-        if any(len(g) < p1 * p2 for g in groups) or len(groups) < slices:
-            raise ValueError("not enough devices per slice")
-        arr = np.asarray(groups).reshape(slices, p1, p2)
-    else:
-        arr = np.asarray(devices[: slices * p1 * p2]).reshape(slices, p1, p2)
+    arr = np.asarray(devices[: slices * p1 * p2]).reshape(slices, p1, p2)
     return Mesh(arr, (SLICE, ROW, COL))
 
 
 def _batch_spec(mesh: Mesh, ndim: int) -> tuple:
     """Leading batch-dim partition entries: the SLICE axis shards the
-    first batch dim on multi-slice meshes, remaining batch dims replicate."""
+    first batch dim on batch-group meshes, remaining batch dims replicate."""
     nbatch = ndim - 3
     if SLICE in mesh.axis_names:
         if nbatch < 1:
             raise ValueError(
-                "a multi-slice mesh shards a leading batch axis over the "
-                "DCN slice axis: use batch_dims >= 1 (a pure spatial "
-                "decomposition must not cross DCN)")
+                "a batch-group mesh shards a leading batch axis over the "
+                "slice axis: use batch_dims >= 1")
         return (SLICE,) + (None,) * (nbatch - 1)
     return (None,) * nbatch
 
 
 def input_sharding(mesh: Mesh, ndim: int = 3) -> NamedSharding:
     """Input pencil layout: x over rows, y over cols, z local (z-pencils),
-    with leading batch dims replicated (or slice-sharded on a DCN mesh)."""
+    with leading batch dims replicated (or slice-sharded on a batch-group
+    mesh)."""
     spec = _batch_spec(mesh, ndim) + (ROW, COL, None)
     return NamedSharding(mesh, P(*spec))
 

@@ -1,6 +1,6 @@
 """Distributed 3-D FFT over a (p1, p2) mesh: the pencil dataflow.
 
-TPU re-expression of the reference's two-phase overlap engine
+JAX re-expression of the reference's two-phase overlap engine
 (/root/reference/offt-compute.c:3501-3862 ``offt_3d_execute_phase{1,2}`` and
 the four pack/a2a/unpack kernels, offt-compute.c:905-2993):
 
@@ -14,7 +14,8 @@ Differences from the reference, by design (SURVEY.md §5 "Distributed
 communication backend"):
 
 - MPI groups/Ialltoallv/MPI_Test progress -> named-axis collectives under
-  ``jax.shard_map``; DMA progress is hardware, so the 8 F* knobs vanish.
+  ``jax.shard_map``; collectives progress on their own, so the 8 F* knobs
+  vanish.
 - pack/unpack memcpy nests -> nothing: GSPMD + XLA layout assignment own
   data movement; what remains tunable is the *pipeline*: each phase is
   chunked into t1/t2 slices whose per-slice collectives XLA's async
@@ -38,34 +39,17 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
-from ..kernels import fourstep, pallas_fft
 from ..kernels.stockham import fft_1d
-from ..plan.params import TRANSPOSE_PPERMUTE, PlanParams
+from ..plan.params import ENGINE_XLA, TRANSPOSE_PPERMUTE, PlanParams
 from .mesh import COL, ROW, _batch_spec, mesh_shape
 
 
 def axis_fft(c, axis: int, inverse: bool, radices, params: PlanParams):
-    """Local 1-D transform dispatch: fused Pallas kernel when enabled and
-    expressible (complex64, 2-stage radix), else the four-step long-1-D
-    route (last axis beyond the 2-stage ceiling, kernels/fourstep.py),
-    else the unfused matmul path."""
-    if params.use_pallas and c.dtype == jnp.complex64:
-        if pallas_fft.can_use_pallas(c.shape[axis], radices):
-            return pallas_fft.fft_1d_complex(c, axis=axis, inverse=inverse,
-                                             radices=radices,
-                                             precision=params.precision,
-                                             block=params.block_batch,
-                                             x_tile=params.x_tile)
-        if (axis % c.ndim == c.ndim - 1 and radices is None
-                and fourstep.can_use_four_step(c.shape[axis],
-                                               params.split_1d)):
-            # numpy ifft semantics (1/n) are already folded into the
-            # sub-stage tables inside the four-step route
-            yr, yi = fourstep.fft_four_step_planar(
-                jnp.real(c), jnp.imag(c), inverse=inverse,
-                split=params.split_1d, precision=params.precision,
-                block=params.block_batch)
-            return lax.complex(yr, yi)
+    """Local complex 1-D transform along ``axis`` (numpy fft/ifft
+    semantics, inverse scaled by 1/n) on the plan's engine: XLA's FFT
+    (cuFFT on the GPU) or the matmul chain with ``radices``."""
+    if params.engine == ENGINE_XLA:
+        return (jnp.fft.ifft if inverse else jnp.fft.fft)(c, axis=axis)
     return fft_1d(c, axis=axis, inverse=inverse, radices=radices,
                   precision=params.precision)
 
@@ -115,7 +99,13 @@ def _transpose(x, axis_name: str, split_axis: int, concat_axis: int,
     if size == 1:
         return x
     if variant:
-        g = lax.all_gather(x, axis_name, axis=concat_axis, tiled=True)
+        # gather along a new leading axis (the layout every backend's
+        # all-gather wants), then fold it into concat_axis
+        g = lax.all_gather(x, axis_name, axis=0, tiled=False)
+        g = jnp.moveaxis(g, 0, concat_axis)
+        shape = list(x.shape)
+        shape[concat_axis] *= size
+        g = g.reshape(shape)
         me = lax.axis_index(axis_name)
         chunk = x.shape[split_axis] // size
         return lax.dynamic_slice_in_dim(g, me * chunk, chunk, split_axis)

@@ -1,4 +1,4 @@
-"""Local transform kernels: mixed-radix MXU FFTs, r2c/c2r, Pallas fusions."""
+"""Local transform kernels: the mixed-radix matmul chain, r2c/c2r helpers."""
 
 from . import dft
 from .stockham import fft, fft_1d, ifft

@@ -1,15 +1,15 @@
 """DFT matrices, twiddle factors, and radix factorization.
 
-TPU-native design note: the reference (rchyena/offt) computes local 1-D
-transforms with FFTW plans (offt-compute.c:329-489 ``setup_p1d``). On TPU the
-idiomatic equivalent is the *four-step / mixed-radix* factorization where each
-small-radix DFT is a dense matmul on the MXU: for N = N1*N2,
+The reference (rchyena/offt) computes local 1-D transforms with FFTW plans
+(offt-compute.c:329-489 ``setup_p1d``). The matmul engine
+(kernels/stockham.py) expresses them as the *four-step / mixed-radix*
+factorization where each small-radix DFT is a dense matmul: for N = N1*N2,
 
     X[k1 + N1*k2] = sum_n2 W_N2^(n2*k2) * [ W_N^(n2*k1) * sum_n1 x[n1*N2 + n2] * W_N1^(n1*k1) ]
 
 so a length-N transform becomes a chain of (radix x radix) matmuls plus
-elementwise twiddle multiplies -- exactly the MXU + VPU split the hardware
-wants. All constant tables (DFT matrices, twiddles) are generated here in
+elementwise twiddle multiplies. The distributed long-1-D engine
+(dist/long1d.py) uses the same identity across devices. All constant tables (DFT matrices, twiddles) are generated here in
 float64 numpy and cast to the target dtype so fp32 transforms keep ~1e-7
 twiddle accuracy even at N = 2^20.
 """
@@ -21,15 +21,9 @@ import math
 
 import numpy as np
 
-# Largest radix we realize as a dense DFT matmul. 128 matches the MXU tile
-# edge; radices beyond this would blow up FLOPs (cost per element ~ radix).
+# Largest radix we realize as a dense DFT matmul; radices beyond this
+# would blow up FLOPs (cost per element ~ radix).
 MAX_RADIX = 128
-
-# Radix ceiling for the fused Pallas kernels' fully-unrolled loop core
-# (pallas_fft._sublane_core_loop issues r1 + r2 dots per block; beyond
-# this, trace/compile time blows up). Shared here so plan feasibility
-# (plan/params.py) can mirror the kernel gate without importing pallas.
-LOOP_MAX_RADIX = 32
 
 
 def _prime_factors(n: int) -> list[int]:
@@ -52,11 +46,11 @@ def factorize(n: int, max_radix: int = MAX_RADIX) -> tuple[int, ...]:
 
     Policy: first minimize the stage count (each stage in the unfused path
     is a full HBM read+write of the array), then *balance* the radices to
-    minimize sum(radices) (MXU MACs per element = radix). E.g. 256 ->
+    minimize sum(radices) (matmul MACs per element = radix). E.g. 256 ->
     (16, 16), not (128, 2): same memory traffic, 4x less matmul work.
     Primes above max_radix are left in the list (the caller falls back to
     Bluestein for those). This is the *default* factorization; the tuner
-    may override it (SURVEY.md 2c "TPU mapping note").
+    may override it (PlanParams.radix_*).
     """
     if n <= 0:
         raise ValueError(f"FFT length must be positive, got {n}")
@@ -130,7 +124,7 @@ def twiddles(n1: int, n2: int, dtype, inverse: bool = False) -> np.ndarray:
 def flops_per_length(n: int, radices: tuple[int, ...] | None = None) -> int:
     """Complex MAC count per length-n transform under a radix factorization.
 
-    Used by the roofline calculator and the tuner's cost model. A radix-r
+    The matmul engine's arithmetic cost. A radix-r
     stage costs r complex MACs per element (dense matmul), so total =
     n * sum(radices) complex MACs ~= 8 * n * sum(radices) real FLOPs.
     """

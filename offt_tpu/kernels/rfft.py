@@ -2,10 +2,16 @@
 
 The reference gets r2c from FFTW's ``fftw_plan_many_dft_r2c`` along z
 (offt-compute.c setup_p1d, is_r2c paths; the Nz/2+1 frequency fold appears
-throughout, e.g. offt-compute.c:63). Here we use the classic even/odd
-packing: a length-N real FFT = one length-N/2 complex FFT (our MXU
-mixed-radix engine) + an O(N) untangle pass that XLA fuses -- halving both
-FLOPs and HBM traffic vs. transforming a complexified copy.
+throughout, e.g. offt-compute.c:63). The XLA-FFT engine calls
+``jnp.fft.rfft``/``irfft`` directly; the matmul engine uses the classic
+even/odd packing here: a length-N real FFT = one length-N/2 complex FFT
+(the mixed-radix matmul chain) + an O(N) untangle pass that XLA fuses.
+
+The packed half-spectrum layout (``plan(real=True, packed=True)``) keeps
+M = N/2 bins along the last axis: bin 0 carries ``X[0] + i*X[M]`` (the DC
+and Nyquist planes, each Hermitian in the other axes), bins 1..M-1 are
+the numpy bins. :func:`pack_rfft3d` / :func:`unpack_rfft3d` convert
+between it and the numpy ``(..., M+1)`` layout.
 """
 
 from __future__ import annotations
@@ -40,8 +46,7 @@ def rfft_1d(x: jax.Array, axis: int = -1, radices=None,
 
     Matches ``np.fft.rfft``. Even N uses the packed half-length transform;
     odd N falls back to a full c2c and slices the non-negative bins.
-    ``fft_fn(v, axis, inverse)`` overrides the inner c2c (e.g. the fused
-    Pallas kernel on TPU).
+    ``fft_fn(v, axis, inverse)`` overrides the inner c2c.
     """
     x = jnp.asarray(x)
     axis = axis % x.ndim
@@ -102,3 +107,50 @@ def irfft_1d(x: jax.Array, n: int | None = None, axis: int = -1,
     vt = do_fft(v, -1, True)
     out = jnp.stack([vt.real, vt.imag], axis=-1).reshape(vt.shape[:-1] + (n,))
     return jnp.moveaxis(out.astype(rdtype), -1, axis)
+
+
+def pack_last(y):
+    """Complex numpy-layout (..., M+1) -> packed (..., M) along the last
+    axis: bin 0 := bin 0 + i * bin M."""
+    m = y.shape[-1] - 1
+    return jnp.concatenate([y[..., :1] + 1j * y[..., m:], y[..., 1:m]],
+                           axis=-1)
+
+
+def unpack_last(p):
+    """Packed (..., M) -> complex (..., M+1) along the last axis, for
+    spectra whose bin-0 and bin-M entries are real (1-D transforms of
+    real data, and the c2r stage once the other axes are inverted):
+    bin 0 = Re(p0), bin M = Im(p0)."""
+    p0 = p[..., :1]
+    zero = jnp.zeros_like(jnp.real(p0))
+    return jnp.concatenate([jax.lax.complex(jnp.real(p0), zero), p[..., 1:],
+                            jax.lax.complex(jnp.imag(p0), zero)], axis=-1)
+
+
+def unpack_3d(p):
+    """Packed 3-D half-spectrum (..., X, Y, M) -> numpy rfftn layout
+    (..., X, Y, M+1). The bin-0 plane P = A + i*B holds the spectra of
+    two real planes, each Hermitian in (x, y); they separate as
+    A = (P + conj(P[-kx, -ky])) / 2 and B = (P - conj(P[-kx, -ky])) / 2i."""
+    p0 = p[..., 0]
+    rev = jnp.conj(jnp.roll(jnp.flip(p0, axis=(-2, -1)), shift=(1, 1),
+                            axis=(-2, -1)))
+    a = 0.5 * (p0 + rev)
+    b = -0.5j * (p0 - rev)
+    return jnp.concatenate([a[..., None], p[..., 1:], b[..., None]],
+                           axis=-1)
+
+
+def pack_rfft3d(yr, yi):
+    """Planar numpy-layout half-spectrum (..., M+1) -> the packed planar
+    (..., M) form (bin 0 := bin 0 + i * bin M)."""
+    y = pack_last(jax.lax.complex(jnp.asarray(yr), jnp.asarray(yi)))
+    return jnp.real(y), jnp.imag(y)
+
+
+def unpack_rfft3d(yr, yi):
+    """Planar packed 3-D half-spectrum (..., X, Y, M) -> the numpy rfftn
+    layout (..., X, Y, M+1), as a planar pair."""
+    y = unpack_3d(jax.lax.complex(jnp.asarray(yr), jnp.asarray(yi)))
+    return jnp.real(y), jnp.imag(y)

@@ -1,18 +1,17 @@
-"""Mixed-radix 1-D FFT as a chain of MXU matmuls (four-step / Stockham).
+"""Mixed-radix 1-D FFT as a chain of matmuls (four-step / Stockham).
 
-This is the TPU-native replacement for the reference's FFTW 1-D sub-plans
-(``setup_p1d``, /root/reference/offt-compute.c:329-489). Instead of butterfly
-networks, each radix stage is a dense (r x r) DFT matmul batched over all
-pencils -- the layout XLA tiles straight onto the MXU -- followed by an
-elementwise twiddle multiply on the VPU. XLA fuses the twiddle into the
-matmul epilogue, so an N = r1*r2*...*rk transform touches HBM O(k) times
-(k = 2..3 for N up to 2^20) instead of O(log2 N).
+The matmul engine: the alternative to XLA's own FFT for the reference's
+FFTW 1-D sub-plans (``setup_p1d``, /root/reference/offt-compute.c:329-489).
+Each radix stage is a dense (r x r) DFT matmul batched over all pencils,
+followed by an elementwise twiddle multiply that XLA fuses into the
+matmul epilogue, so an N = r1*r2*...*rk transform touches device memory
+O(k) times instead of O(log2 N).
 
 The recursion (decimation in time, self-sorting via reshape/transpose):
 
     x: (..., N) with N = r * m
-    y[k1, n2]  = sum_n1 F_r[k1, n1] * x[n1 * m + n2]        (MXU)
-    y[k1, n2] *= W_N^(k1 * n2)                               (VPU)
+    y[k1, n2]  = sum_n1 F_r[k1, n1] * x[n1 * m + n2]        (matmul)
+    y[k1, n2] *= W_N^(k1 * n2)                               (elementwise)
     z[k1, k2]  = fft_m(y[k1, :])                             (recurse)
     X[k2 * r + k1] = z[k1, k2]                               (transpose)
 
@@ -32,31 +31,24 @@ import numpy as np
 
 from . import dft
 
-# MXU precision for the DFT matmuls. TPU f32 matmuls default to a single
-# bfloat16 pass (~3 decimal digits) — catastrophic for FFT accuracy (measured
-# 5e-3 rel err at 128^3 on v5e). HIGHEST requests full fp32-equivalent
-# accumulation (6-pass bf16 on v5e). This is a real accuracy/speed knob; the
-# tuner may trade it down for fp32-tolerant workloads via set_matmul_precision.
+# Precision of the DFT matmuls. "highest" keeps float32 operands (fp32
+# outside the GPU's tensor cores), the only tier that meets the 1e-6
+# accuracy bar; "default" lets XLA use TF32 (about 1e-3 relative error).
+# Every dot in this module goes through _einsum so none escapes it.
 _PRECISION = "highest"
 
 
 def set_matmul_precision(p: str) -> None:
     """Set the module-default DFT matmul precision: 'default' | 'high' |
     'highest'. Per-plan overrides flow through ``fft_1d(precision=...)``
-    instead (PlanParams.precision — 'stack6' is a Pallas-kernel-only mode
-    and maps to 'highest' here)."""
+    (PlanParams.precision)."""
     global _PRECISION
     _PRECISION = p
 
 
-def _resolve_precision(p):
-    if p is None:
-        return _PRECISION
-    return "highest" if p in ("stack6", "stack3") else p
-
-
 def _einsum(subscripts, *ops, precision=None):
-    return jnp.einsum(subscripts, *ops, precision=_resolve_precision(precision))
+    return jnp.einsum(subscripts, *ops,
+                      precision=precision or _PRECISION)
 
 
 def _as_complex_dtype(dtype) -> jnp.dtype:
@@ -119,37 +111,13 @@ def _bluestein_tables(n: int, dtype_name: str, inverse: bool):
 
 
 def _bluestein_last(x: jax.Array, inverse: bool, precision=None) -> jax.Array:
-    """Arbitrary-length FFT along the last axis via chirp-z (Bluestein).
-
-    When the caller is on the Pallas path (a stacked ``precision`` only
-    arrives from Pallas-enabled plans) and the convolution length m is
-    kernel-expressible, the two inner pow2 transforms ride the fused
-    kernels — the 2-stage core for m <= 16384, the fused four-step route
-    beyond (kernels/fourstep.py) — instead of the unfused multi-stage
-    chain. Reference analogue: FFTW owns Bluestein's inner plans too
-    (setup_p1d sub-plans, offt-compute.c:329-489)."""
+    """Arbitrary-length FFT along the last axis via chirp-z (Bluestein)."""
     n = x.shape[-1]
     a, bf, m = _bluestein_tables(n, str(x.dtype), inverse)
     a = jnp.asarray(a)
     bf = jnp.asarray(bf)
     pad = [(0, 0)] * (x.ndim - 1) + [(0, m - n)]
     xa = jnp.pad(x * a, pad)
-    if str(x.dtype) == "complex64" and precision in ("stack6", "stack3"):
-        from . import fourstep
-        from . import pallas_fft as pf
-
-        def _inner(v, inv):
-            if pf.can_use_pallas(m):
-                # fft_1d_complex(scale=True): inverse includes 1/m
-                return pf.fft_1d_complex(v, axis=-1, inverse=inv,
-                                         precision=precision)
-            yr, yi = fourstep.fft_four_step_planar(
-                jnp.real(v), jnp.imag(v), inverse=inv, precision=precision)
-            return jax.lax.complex(yr, yi)
-
-        if pf.can_use_pallas(m) or fourstep.can_use_four_step(m):
-            y = _inner(_inner(xa, False) * bf, True)  # 1/m inside
-            return y[..., :n] * a
     rad = dft.factorize(m)
     xf = _fft_last(xa, rad, inverse=False, precision=precision)
     yf = xf * bf
@@ -168,9 +136,8 @@ def fft_1d(
 
     Forward matches ``np.fft.fft``; inverse matches ``np.fft.ifft`` (scaled
     by 1/N). ``radices`` overrides the stage factorization (a tuning knob).
-    ``precision`` overrides the MXU precision for the DFT contractions
-    ('default' | 'high' | 'highest'; 'stack6' maps to 'highest' here —
-    it is a Pallas-kernel mode); None keeps the module default.
+    ``precision`` overrides the precision of the DFT contractions
+    ('default' | 'high' | 'highest'); None keeps the module default.
     """
     x = jnp.asarray(x)
     x = x.astype(_as_complex_dtype(x.dtype))

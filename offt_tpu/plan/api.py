@@ -22,10 +22,11 @@ from jax import lax
 
 from ..dist import mesh as meshlib
 from ..dist.pencil import make_pencil_fft3d
-from ..kernels.rfft import irfft_1d, rfft_1d
-from ..kernels.stockham import _as_complex_dtype, fft_1d
+from ..kernels.rfft import irfft_1d, pack_last, rfft_1d, unpack_3d, unpack_last
+from ..kernels.stockham import _as_complex_dtype
 from . import cache
-from .params import PlanParams, ProblemSpec, default_params, infeasible_reason
+from .params import (ENGINE_XLA, PlanParams, ProblemSpec, default_params,
+                     infeasible_reason)
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -33,9 +34,8 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 # ---- planar complex boundary --------------------------------------------
-# Some TPU runtimes (and all Pallas kernels) have no complex dtype at the
-# host<->device boundary; complex values may exist only *inside* a jitted
-# computation. A "planar" array is the pair (real, imag) of float arrays.
+# A "planar" array is the pair (real, imag) of float arrays; plans built
+# with planar=True take and return such pairs instead of complex arrays.
 
 def to_planar(x) -> tuple:
     """Split a complex array into the planar (real, imag) float pair."""
@@ -44,7 +44,7 @@ def to_planar(x) -> tuple:
 
 
 def from_planar(re, im):
-    """Combine a planar pair into a complex array (trace-time only on TPU)."""
+    """Combine a planar pair into a complex array."""
     re = jnp.asarray(re)
     return jax.lax.complex(re, jnp.asarray(im).astype(re.dtype))
 
@@ -69,27 +69,27 @@ def _planarize(fn, in_planar: bool, out_planar: bool):
     return wrapped
 
 
-def _rfft_z(x, params: PlanParams, nz: int):
-    """Forward r2c along the last axis: fused Pallas kernel (packed
-    half-length + in-kernel untangle) when expressible, else the generic
-    packed path."""
-    import jax.numpy as _jnp
-
-    from ..kernels import pallas_fft as pf
-
-    if (params.use_pallas and x.dtype == _jnp.float32
-            and pf.can_use_rfft_last(nz, params.radix_z)):
-        yr, yi = pf.rfft_last_planar(x, radices=params.radix_z,
-                                     precision=params.precision)
-        return jax.lax.complex(yr, yi)
+def _rfft_z(x, params: PlanParams):
+    """Forward r2c along the last axis on the plan's engine (numpy rfft
+    layout, N//2+1 bins)."""
+    if params.engine == ENGINE_XLA:
+        return jnp.fft.rfft(x, axis=-1)
     return rfft_1d(x, axis=-1, radices=params.radix_z,
                    fft_fn=_real_fft_fn(params))
 
 
+def _irfft_z(x, params: PlanParams, nz: int):
+    """Inverse c2r along the last axis to length ``nz`` (numpy irfft)."""
+    if params.engine == ENGINE_XLA:
+        return jnp.fft.irfft(x, n=nz, axis=-1)
+    return irfft_1d(x, n=nz, axis=-1, radices=params.radix_z,
+                    fft_fn=_real_fft_fn(params))
+
+
 def _real_fft_fn(params: PlanParams):
-    """Inner-c2c dispatch for the packed r2c/c2r transforms (fused Pallas
-    kernel when enabled). radix_z applies to the half-length transform;
-    dropped when the inner length differs (odd-N full-length fallback)."""
+    """Inner c2c of the matmul engine's packed r2c/c2r. radix_z applies
+    to the half-length transform; dropped when the inner length differs
+    (odd-N full-length fallback)."""
     from ..dist.pencil import axis_fft
 
     def fn(v, axis, inverse):
@@ -107,27 +107,24 @@ def _real_fft_fn(params: PlanParams):
 
 
 def _local_fft3d(x, inverse: bool, real: bool, nz: int, params: PlanParams):
-    """Single-device 3-D transform: the fused planar kernels (slab +
-    stride-padded x) when eligible — this also serves the batch-sharded
-    shard_map path and complex-boundary plans — else three axis passes."""
-    from ..kernels import pallas_fft as pf
+    """Single-device transform over the three trailing axes (also the
+    per-device body of the batch-sharded path). The XLA engine makes one
+    n-D FFT call over the axes longer than 1; the matmul engine makes
+    three axis passes."""
     from ..dist.pencil import axis_fft
 
     ax, ay, az = x.ndim - 3, x.ndim - 2, x.ndim - 1
-    if (not real and params.use_pallas and x.dtype == jnp.complex64
-            and all(pf.can_use_pallas(n, r) for n, r in
-                    zip(x.shape[-3:], (params.radix_x, params.radix_y,
-                                       params.radix_z)))):
-        yr, yi = pf.fft3d_planar(
-            jnp.real(x), jnp.imag(x), inverse=inverse,
-            rad_z=params.radix_z, rad_y=params.radix_y,
-            rad_x=params.radix_x, precision=params.precision,
-            block=params.block_batch, slab_rows=params.slab_rows,
-            x_tile=params.x_tile)
-        return jax.lax.complex(yr, yi)
+    if params.engine == ENGINE_XLA:
+        axes = [a for a in (ax, ay) if x.shape[a] > 1] + [az]
+        if real and inverse:
+            s = [x.shape[a] for a in axes[:-1]] + [nz]
+            return jnp.fft.irfftn(x, s=s, axes=axes)
+        if real:
+            return jnp.fft.rfftn(x, axes=axes)
+        return (jnp.fft.ifftn if inverse else jnp.fft.fftn)(x, axes=axes)
     if not inverse:
         if real:
-            x = _rfft_z(x, params, x.shape[az])
+            x = _rfft_z(x, params)
         else:
             x = axis_fft(x, az, False, params.radix_z, params)
         x = axis_fft(x, ay, False, params.radix_y, params)
@@ -135,8 +132,7 @@ def _local_fft3d(x, inverse: bool, real: bool, nz: int, params: PlanParams):
     x = axis_fft(x, ax, True, params.radix_x, params)
     x = axis_fft(x, ay, True, params.radix_y, params)
     if real:
-        return irfft_1d(x, n=nz, axis=az, radices=params.radix_z,
-                        fft_fn=_real_fft_fn(params))
+        return _irfft_z(x, params, nz)
     return axis_fft(x, az, True, params.radix_z, params)
 
 
@@ -144,10 +140,10 @@ def _local_fft3d(x, inverse: bool, real: bool, nz: int, params: PlanParams):
 class Plan:
     """A compiled 3-D FFT plan (forward or inverse, c2c or r2c).
 
-    Plans are differentiable: ``jax.grad``/``jax.vjp`` through
-    ``plan(...)(x)`` applies the adjoint plan (FFTs are linear — see
-    plan/autodiff.py). ``_fn`` is the raw jitted executable (has
-    ``.lower``); ``_dfn`` wraps it with the custom_vjp rule."""
+    Plans are differentiable in both modes (``jax.grad``, ``jax.vjp``,
+    ``jax.jvp``): every pipeline is plain JAX, so JAX's own rules for FFTs
+    and collectives apply. ``_fn`` is the jitted executable (has
+    ``.lower``)."""
 
     spec: ProblemSpec
     params: PlanParams
@@ -156,13 +152,13 @@ class Plan:
     _fn: callable = dataclasses.field(repr=False)
     planar: bool = False
     _in_planar: bool = False
-    _dfn: Optional[callable] = dataclasses.field(repr=False, default=None)
     # non-pencil layouts (the distributed 1-D engine's natural-order flat
-    # shardings): when set, overrides the pencil input/output properties
+    # shardings, the batch-sharded layout): when set, overrides the
+    # pencil input/output properties
     _shards: Optional[tuple] = dataclasses.field(repr=False, default=None)
 
     def __call__(self, x, x_imag=None):
-        fn = self._dfn or self._fn
+        fn = self._fn
         if self._in_planar:
             if x_imag is None:
                 x, x_imag = x  # accept a (re, im) pair as one argument
@@ -222,32 +218,13 @@ def real_stage_fns(params: PlanParams, nz: int, packed: bool, inverse: bool,
         return first_fn, last_fn
     nzf = nz // 2 if packed else nz // 2 + 1
     if not inverse:
-        if packed:
-            from ..kernels import pallas_fft as pf
-
-            def first_fn(c):
-                yr, yi = pf.rfft_last_planar(
-                    c, radices=params.radix_z, precision=params.precision,
-                    packed=True)
-                return jax.lax.complex(yr, yi)
-        else:
-            def first_fn(c):
-                return _rfft_z(c, params, nz)
+        def first_fn(c):
+            y = _rfft_z(c, params)
+            return pack_last(y) if packed else y
     else:
-        if packed:
-            from ..kernels import pallas_fft as pf
-
-            def last_fn(c):
-                c = _slice_axis(c, c.ndim - 1, nzf)  # drop exchange pad
-                return pf.icrfft_last_planar(
-                    jnp.real(c), jnp.imag(c), nz, radices=params.radix_z,
-                    precision=params.precision)
-        else:
-            def last_fn(c):
-                c = _slice_axis(c, c.ndim - 1, nzf)
-                return irfft_1d(c, n=nz, axis=c.ndim - 1,
-                                radices=params.radix_z,
-                                fft_fn=_real_fft_fn(params))
+        def last_fn(c):
+            c = _slice_axis(c, c.ndim - 1, nzf)  # drop exchange pad
+            return _irfft_z(unpack_last(c) if packed else c, params, nz)
     return first_fn, last_fn
 
 
@@ -263,9 +240,9 @@ def _build_raw(spec: ProblemSpec, params: PlanParams, mesh, ndim: int,
     MPI_Ialltoallv, offt.h:109-125).
 
     ``packed`` (real transforms): the frequency axis stays at M = Nz/2
-    packed lanes through the whole pipeline — the distributed exchanges
-    then move exactly the half-spectrum volume, 128-lane aligned, with no
-    Nyquist-plane padding (DESIGN.md).
+    packed bins through the whole pipeline — the distributed exchanges
+    then move exactly the half-spectrum volume, with no Nyquist-plane
+    padding (kernels/rfft.py).
     """
     nx, ny, nz = spec.shape
     ax, ay, az = ndim - 3, ndim - 2, ndim - 1
@@ -274,7 +251,12 @@ def _build_raw(spec: ProblemSpec, params: PlanParams, mesh, ndim: int,
 
     if mesh is None:
         def fn(x):
-            return _local_fft3d(x, spec.inverse, spec.real, nz, params)
+            if packed and spec.inverse:
+                x = unpack_3d(x)
+            y = _local_fft3d(x, spec.inverse, spec.real, nz, params)
+            if packed and not spec.inverse:
+                y = pack_last(y)
+            return y
         return fn, None, None
 
     if spec.batch_sharded:
@@ -360,11 +342,9 @@ def _jit_plan_fn(spec: ProblemSpec, raw_fn, in_shard, out_shard,
     """Planarize (if requested) and jit with pinned shardings.
 
     With ``planar=True`` complex operands/results cross the jit boundary as
-    (real, imag) float pairs — required on TPU runtimes without complex
-    transfer support, and the native layout for Pallas kernels.
-    ``donate`` donates the input buffers to XLA (the caller's arrays are
-    invalidated) — required headroom for HBM-scale transforms like
-    1024^3 r2c on a 16 GB chip."""
+    (real, imag) float pairs. ``donate`` donates the input buffers to XLA
+    (the caller's arrays are invalidated), which lets the largest
+    transforms reuse the input's memory."""
     in_planar = planar and not (spec.real and not spec.inverse)
     out_planar = planar and not (spec.real and spec.inverse)
     fn = _planarize(raw_fn, in_planar, out_planar)
@@ -380,74 +360,14 @@ def _jit_plan_fn(spec: ProblemSpec, raw_fn, in_shard, out_shard,
 
 def _build_fn(spec: ProblemSpec, params: PlanParams, mesh, ndim: int,
               planar: bool = False, out_scale: float = 1.0,
-              packed: bool = False, donate: bool = False,
-              in_place: bool = False):
+              packed: bool = False, donate: bool = False):
     def _scaled(fn_inner):
         if out_scale == 1.0:
             return fn_inner
 
         def wrapped(*a):
-            y = fn_inner(*a)
-            if isinstance(y, tuple):
-                return tuple(o * out_scale for o in y)
-            return y * out_scale
+            return fn_inner(*a) * out_scale
         return wrapped
-
-    # planar-native r2c/c2r fast path: packed-Nyquist kernels keep the
-    # frequency axis at exactly Nz/2 aligned lanes (a 129-lane axis
-    # physically occupies two 128-lane tiles -> ~2x traffic everywhere)
-    if (planar and mesh is None and spec.real and params.use_pallas
-            and spec.dtype == "complex64"):
-        from ..kernels import pallas_fft as pf
-
-        nx, ny, nz = spec.shape
-        if pf.can_use_rfft3d(nx, ny, nz, params.radix_x, params.radix_y,
-                             params.radix_z):
-            if not spec.inverse:
-                def fwd(x):
-                    return pf.rfft3d_planar(
-                        x, rad_z=params.radix_z, rad_y=params.radix_y,
-                        rad_x=params.radix_x, precision=params.precision,
-                        slab_rows=params.slab_rows, packed=packed,
-                        x_tile=params.x_tile)
-                return jax.jit(_scaled(fwd),
-                               donate_argnums=(0,) if donate else ()), \
-                    False, None
-            def inv(re, im):
-                return pf.irfft3d_planar(
-                    re, im, nz, rad_z=params.radix_z, rad_y=params.radix_y,
-                    rad_x=params.radix_x, precision=params.precision,
-                    slab_rows=params.slab_rows, packed=packed,
-                    x_tile=params.x_tile)
-            return jax.jit(_scaled(inv),
-                           donate_argnums=(0, 1) if donate else ()), \
-                True, None
-
-    # planar-native fast path: local c2c with fused kernels never touches a
-    # complex dtype at all (zero conversion passes)
-    if (planar and mesh is None and not spec.real and params.use_pallas
-            and spec.dtype == "complex64"):
-        from ..kernels import pallas_fft as pf
-
-        if all(pf.can_use_pallas(n, r) for n, r in
-               zip(spec.shape, (params.radix_x, params.radix_y,
-                                params.radix_z))):
-            # out_scale (norm conventions) folds into the final stage's
-            # constant tables — no _scaled elementwise pass (free ortho)
-            def fn(re, im):
-                return pf.fft3d_planar(
-                    re, im, inverse=spec.inverse,
-                    rad_z=params.radix_z, rad_y=params.radix_y,
-                    rad_x=params.radix_x, precision=params.precision,
-                    block=params.block_batch, slab_rows=params.slab_rows,
-                    out_scale=out_scale, x_tile=params.x_tile,
-                    in_place=in_place)
-            return jax.jit(fn,
-                           donate_argnums=(0, 1) if donate else ()), \
-                True, None
-    if in_place:
-        raise ValueError("in_place: shape/radix config is not eligible "
-                         "for the fused planar c2c kernels")
 
     # distributed long-1-D: a degenerate (1, 1, n) plan on a mesh rides
     # the four-step engine over ALL devices (dist/long1d.py) when a
@@ -478,7 +398,9 @@ def _build_fn(spec: ProblemSpec, params: PlanParams, mesh, ndim: int,
                                              packed=packed)
     fn, in_planar = _jit_plan_fn(spec, _scaled(raw_fn), in_shard, out_shard,
                                  planar, donate=donate)
-    return fn, in_planar, None
+    # the batch-sharded layout is not the pencil one: report it
+    return fn, in_planar, ((in_shard, out_shard) if spec.batch_sharded
+                           else None)
 
 
 def _norm_scale(norm: str, inverse: bool, total: int) -> float:
@@ -511,26 +433,17 @@ def plan(
     batch_sharded: bool = False,
     packed: bool = False,
     donate: bool = False,
-    in_place: bool = False,
 ) -> Plan:
     """Build a 3-D FFT plan. ``shape`` is the spatial (Nx, Ny, Nz).
 
     ``planar=True`` moves complex operands/results across the jit boundary
-    as (real, imag) float pairs — required on TPU runtimes that cannot
-    transfer complex arrays, and zero-cost otherwise (the split/combine is
-    fused by XLA). ``norm`` follows numpy (backward | ortho | forward).
+    as (real, imag) float pairs (the split/combine is fused by XLA).
+    ``norm`` follows numpy (backward | ortho | forward).
 
-    ``packed=True`` (real transforms, single device) uses the TPU-native
-    packed half-spectrum layout: (..., Nz/2) planar with plane 0 carrying
-    plane0 + i*planeM — exactly 128-lane-aligned, ~2.3x faster than the
-    numpy (..., Nz/2+1) layout on v5e. Convert with
-    ``offt_tpu.kernels.pallas_fft.unpack_rfft3d / pack_rfft3d``.
-
-    ``in_place=True`` (planar c2c fast path, pair with ``donate=True``)
-    aliases every kernel's output onto its input so the transform runs
-    in ONE planar pair's HBM footprint — 1024^3 c2c (8 GiB live instead
-    of 16+) fits a single 16 GB chip this way, where XLA's fftn OOMs at
-    512^3 already.
+    ``packed=True`` (real transforms, planar) uses the packed
+    half-spectrum layout: (..., Nz/2) with bin 0 carrying bin0 + i*binM,
+    so distributed exchanges move exactly Nz/2 bins per pencil. Convert
+    with ``offt_tpu.pack_rfft3d`` / ``offt_tpu.unpack_rfft3d``.
     """
     if len(shape) != 3:
         raise ValueError(f"shape must be (Nx, Ny, Nz), got {shape}")
@@ -539,8 +452,10 @@ def plan(
     if packed and (not real or not planar or batch_sharded):
         raise ValueError("packed layout requires real=True, planar=True "
                          "(and not batch_sharded)")
+    if packed and shape[2] % 2:
+        raise ValueError(f"packed layout needs an even Nz (got {shape[2]})")
     # spatial device count: the pencil decomposition spans only the
-    # (ROW, COL) axes; a multi-slice DCN axis shards batch, not space
+    # (ROW, COL) axes; a batch-group slice axis shards batch, not space
     p = 1 if mesh is None else (
         meshlib.mesh_shape(mesh)[0] * meshlib.mesh_shape(mesh)[1])
     # real transforms accept the REAL dtype (FFTW r2c convention) and
@@ -580,55 +495,11 @@ def plan(
         mesh = meshlib.with_rankorder(mesh, params.rankorder)
     ndim = batch_dims + 3
     scale = _norm_scale(norm, inverse, shape[0] * shape[1] * shape[2])
-    if packed:
-        from ..kernels import pallas_fft as pf
-        if not params.use_pallas:
-            # packed REQUIRES the Pallas kernels; auto-enable (they run in
-            # interpret mode off-TPU)
-            params = params.replace(use_pallas=1)
-        if mesh is None:
-            if not pf.can_use_rfft3d(*shape, params.radix_x, params.radix_y,
-                                     params.radix_z):
-                raise ValueError("packed layout needs the Pallas r2c fast "
-                                 f"path (shape {shape} not eligible)")
-        elif (shape[2] % 2
-              or pf._pick_2stage(shape[2] // 2, params.radix_z) is None):
-            # degenerate (1, 1, n): the distributed 1-D real engine
-            # handles long even n via the half-length four-step instead
-            # of a 2-stage z kernel (dist/long1d.py)
-            from ..dist.long1d import dist1d_split
-            if not (shape[:2] == (1, 1) and shape[2] % 2 == 0
-                    and dist1d_split(mesh, shape[2] // 2, params)
-                    is not None):
-                raise ValueError(f"packed layout needs Nz even with Nz/2 "
-                                 f"2-stage expressible (got Nz={shape[2]})")
-    if in_place:
-        from ..kernels import pallas_fft as pf
-        if (mesh is not None or real or not planar
-                or not params.use_pallas):
-            raise ValueError("in_place requires the single-device planar "
-                             "c2c Pallas fast path")
-        if (shape[0] > 1 and not pf.can_fuse_slab(
-                shape[1], shape[2], params.radix_y, params.radix_z)):
-            # validate the fusable-slab requirement HERE (plan() is the
-            # documented validation point), not at first execution
-            raise ValueError("in_place needs a fusable (y,z) slab: "
-                             f"ny*nz = {shape[1] * shape[2]} exceeds the "
-                             "VMEM slab ceiling or an axis is not "
-                             "2-stage expressible")
     fn, in_planar, shards = _build_fn(spec, params, mesh, ndim, planar=planar,
                                       out_scale=scale, packed=packed,
-                                      donate=donate, in_place=in_place)
-    from .autodiff import wrap_plan_fn
-    dfn = wrap_plan_fn(fn, shape=tuple(shape), dtype=spec.dtype, mesh=mesh,
-                       real=real, inverse=inverse, norm=norm,
-                       batch_dims=batch_dims, planar_in=in_planar,
-                       planar_out=planar and not (real and inverse),
-                       packed=packed, batch_sharded=batch_sharded,
-                       params=params, in_place=in_place)
+                                      donate=donate)
     return Plan(spec=spec, params=params, mesh=mesh, ndim=ndim, _fn=fn,
-                planar=planar, _in_planar=in_planar, _dfn=dfn,
-                _shards=shards)
+                planar=planar, _in_planar=in_planar, _shards=shards)
 
 
 # ---- one-shot conveniences (plans are cached per call-signature by jit) ----
@@ -664,7 +535,7 @@ def irfft3d(x, nz: Optional[int] = None, mesh=None, params=None, **kw):
     return p(x)
 
 
-# ---- 2-D transforms (same kernels, one axis fewer; distributed via the
+# ---- 2-D transforms (same pipelines, one axis fewer; distributed via the
 # METHOD-ONE analogue: a 1-D decomposition on a (1, p) mesh, where the
 # degenerate x axis makes phase 2's exchange trivial —
 # offt-compute.c:3896-3950)
@@ -672,7 +543,7 @@ def irfft3d(x, nz: Optional[int] = None, mesh=None, params=None, **kw):
 def fft2d(x, params=None, mesh=None, **kw):
     """2-D c2c FFT over the last two axes.
 
-    Single device: the fused (y, z) slab kernel when expressible.
+    Single device: one 2-D transform on the plan's engine.
     Distributed: pass a ``make_mesh(1, p)`` mesh — rows are y-sharded,
     the single pencil exchange transposes y<->z over the COL axis, and
     the result comes back z-sharded (transposed-out layout, like the 3-D
@@ -695,7 +566,7 @@ def ifft2d(x, params=None, mesh=None, **kw):
 def rfft2d(x, params=None, mesh=None, **kw):
     """2-D r2c over the last two axes: real (..., Y, N) -> complex
     (..., Y, N//2+1) (numpy rfft2 layout; ``packed=True`` keeps the
-    aligned M = N/2 half-spectrum). Distributed like :func:`fft2d`."""
+    M = N/2 packed half-spectrum). Distributed like :func:`fft2d`."""
     nd = x.ndim
     shape3 = (1,) + tuple(x.shape[nd - 2:])
     p = plan(shape3, x.dtype, params=params, mesh=mesh, real=True,

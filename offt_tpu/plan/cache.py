@@ -63,7 +63,7 @@ def _load() -> dict:
 
 def _params_to_json(p: PlanParams) -> dict:
     d = dataclasses.asdict(p)
-    for k in ("radix_z", "radix_y", "radix_x", "x_tile", "split_1d"):
+    for k in ("radix_z", "radix_y", "radix_x", "split_1d"):
         if d[k] is not None:
             d[k] = list(d[k])
     return d
@@ -71,7 +71,7 @@ def _params_to_json(p: PlanParams) -> dict:
 
 def _params_from_json(d: dict) -> PlanParams:
     d = dict(d)
-    for k in ("radix_z", "radix_y", "radix_x", "x_tile", "split_1d"):
+    for k in ("radix_z", "radix_y", "radix_x", "split_1d"):
         if d.get(k) is not None:
             d[k] = tuple(d[k])
     # drop unknown keys (older/newer cache rows across versions)
@@ -80,29 +80,8 @@ def _params_from_json(d: dict) -> PlanParams:
     return PlanParams(**d)
 
 
-def _bundled() -> dict:
-    """Curated tuned plans shipped WITH the package (hardware-tuned on
-    v5e, receipts in docs/receipts/) — a fresh install gets measured
-    wins (e.g. 320^3's mixed stage orders, 12%) without having tuned
-    locally. The user cache always takes precedence; FFTW ships no
-    analogue (wisdom is local-only)."""
-    global _BUNDLED_DB
-    if _BUNDLED_DB is None:
-        f = pathlib.Path(__file__).parent / "tuned_defaults.json"
-        try:
-            _BUNDLED_DB = json.loads(f.read_text())
-        except (OSError, json.JSONDecodeError):
-            _BUNDLED_DB = {}
-    return _BUNDLED_DB
-
-
-_BUNDLED_DB: dict | None = None
-
-
 def lookup(key: str) -> Optional[PlanParams]:
     rec = _load().get(key)
-    if rec is None:
-        rec = _bundled().get(key)
     if rec is None:
         return None
     try:
@@ -145,12 +124,7 @@ def clear() -> None:
 # plans can move between machines of the same device kind) ----
 
 def export_wisdom(path) -> int:
-    """Write the LOCAL cache to ``path``; returns the number of entries.
-
-    Bundled entries are deliberately NOT exported: the importing
-    machine's package ships its own (possibly newer) bundled set, and
-    copying them into its local cache would shadow future
-    tuned_defaults.json upgrades forever (local wins over bundled)."""
+    """Write the local cache to ``path``; returns the number of entries."""
     db = _load()
     pathlib.Path(path).write_text(json.dumps(db, indent=1, sort_keys=True))
     return len(db)
@@ -197,7 +171,7 @@ def main(argv=None) -> int:
         prog="python -m offt_tpu.plan.cache",
         description="tuned-plan cache (wisdom) maintenance")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("list", help="print cache entries (local + bundled)")
+    sub.add_parser("list", help="print cache entries")
     pe = sub.add_parser("export", help="write merged cache to FILE")
     pe.add_argument("file")
     pi = sub.add_parser("import", help="merge FILE into the local cache")
@@ -206,13 +180,11 @@ def main(argv=None) -> int:
     ns = ap.parse_args(argv)
     if ns.cmd == "list":
         local = _load()
-        for src, db in (("bundled", _bundled()), ("local", local)):
-            for k, rec in sorted(db.items()):
-                perf = rec.get("perf")
-                perf_s = f"{perf * 1e3:.3f} ms" if perf else "-"
-                print(f"{src:8s} {k}  perf={perf_s}")
-        print(f"# {len(_bundled())} bundled, {len(local)} local "
-              f"({_cache_file()})")
+        for k, rec in sorted(local.items()):
+            perf = rec.get("perf")
+            perf_s = f"{perf * 1e3:.3f} ms" if perf else "-"
+            print(f"{k}  perf={perf_s}")
+        print(f"# {len(local)} entries ({_cache_file()})")
     elif ns.cmd == "export":
         print(f"exported {export_wisdom(ns.file)} entries -> {ns.file}")
     elif ns.cmd == "import":

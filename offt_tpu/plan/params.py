@@ -1,10 +1,10 @@
-"""Plan parameters: the TPU re-expression of the reference's 24-knob space.
+"""Plan parameters: the JAX re-expression of the reference's 24-knob space.
 
 The reference's ``struct _offt_params`` (/root/reference/offt.h:69-100) has
 24 integers: P1 (grid factor), T1/T2 (tile sizes), W1/W2 (overlap windows),
 8 pack/unpack cache sub-tile dims, 8 MPI_Test injection frequencies, Ry
 (phase work split), V (alltoallv vs padded alltoall), S (strided FFT vs
-explicit transpose). On TPU (SURVEY.md §2c "TPU mapping note"):
+explicit transpose). Here (SURVEY.md §2c mapping note):
 
 - **P1** survives as the mesh factorization p = P1 x P2.
 - **T1/T2, W1/W2** survive as pipeline chunk counts / in-flight depth for the
@@ -14,12 +14,12 @@ explicit transpose). On TPU (SURVEY.md §2c "TPU mapping note"):
   XLA wants static equal shapes).
 - **Ry** survives as the fraction of y-FFT work done before vs after the
   second transpose.
-- The 8 **F\\*** MPI_Test progress knobs are *dropped*: TPU DMA progresses in
-  hardware, no manual progress calls exist. The 8 cache sub-tile dims
-  collapse into Pallas block shape knobs (BZ/BY/BX batch tiles) because XLA
-  and Mosaic own the cache hierarchy.
-- New TPU-only knobs: per-axis radix factorization and the fused-kernel
-  switch (use_pallas).
+- The 8 **F\\*** MPI_Test progress knobs are *dropped*: XLA's collectives
+  progress on their own, no manual progress calls exist. The 8 cache
+  sub-tile dims are dropped too: XLA and the FFT library own the memory
+  hierarchy.
+- New knobs: the local engine (XLA's FFT or the matmul chain) and, for the
+  matmul chain, per-axis radix factorization and dot precision.
 """
 
 from __future__ import annotations
@@ -36,6 +36,12 @@ BUFFER_ELEMS_LIMIT = 32 * 1024 * 1024
 
 TRANSPOSE_ALL_TO_ALL = 0   # single lax.all_to_all per phase
 TRANSPOSE_PPERMUTE = 1     # ring of collective_permutes (overlappable)
+
+# local 1-D/n-D transform engine
+ENGINE_XLA = "xla"         # jnp.fft / lax.fft (cuFFT on the GPU)
+ENGINE_MATMUL = "matmul"   # mixed-radix matmul chain (kernels/stockham.py)
+ENGINES = (ENGINE_XLA, ENGINE_MATMUL)
+PRECISIONS = ("highest", "high", "default")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,42 +65,31 @@ class PlanParams:
     s1: int = TRANSPOSE_ALL_TO_ALL
     s2: int = TRANSPOSE_ALL_TO_ALL
     # device->grid assignment (reference ROTATE_RANKORDER,
-    # offt-compute.c:69-77): 0 = topology-aware / mesh-as-given,
-    # 1 = row-major enumeration order, 2 = column-major (rotated).
-    # Decides whether each phase's all_to_all members are ICI neighbors.
+    # offt-compute.c:69-77): 0 = mesh as given, 1 = row-major
+    # enumeration order, 2 = column-major (rotated). Decides which
+    # devices share each phase's all_to_all.
     rankorder: int = 0
     # per-phase exchange primitive, 2 bits like the reference V (offt.h:96,
     # alltoallv vs padded alltoall): bit0 = phase 1, bit1 = phase 2;
     # 0 = split all_to_all / ring (see s1/s2), 1 = all_gather + local slice
     # (latency-optimal, bandwidth-heavy — wins on small exchanges)
     v: int = 0
-    # per-axis radix factorization override; None -> dft.factorize default
+    # local transform engine: "xla" (jnp.fft, which XLA hands to cuFFT on
+    # the GPU) or "matmul" (the mixed-radix matmul chain)
+    engine: str = ENGINE_XLA
+    # matmul engine only: per-axis radix factorization override; None ->
+    # dft.factorize default
     radix_z: Optional[tuple[int, ...]] = None
     radix_y: Optional[tuple[int, ...]] = None
     radix_x: Optional[tuple[int, ...]] = None
-    # fused Pallas local-FFT kernel on TPU (0 = pure-XLA matmul path)
-    use_pallas: int = 0
-    # batch tile (pencils per Pallas block); 0 = auto
-    block_batch: int = 0
-    # x-rows per fused (y,z)-slab block; 0 = auto (measured-best table)
-    slab_rows: int = 0
-    # stride-padded x-kernel block tile (ty, tz); None = (8, 128), the
-    # measured-best default at 256^3 on v5e (bigger tiles lose to
-    # shallower double-buffering under the vmem limit)
-    x_tile: Optional[tuple[int, int]] = None
-    # four-step split for long degenerate 1-D transforms (Nx == Ny == 1,
-    # Nz beyond the fused 2-stage kernel ceiling): Nz = n1 * n2 with both
-    # factors kernel-expressible (kernels/fourstep.py); None = auto
-    # (balanced picker). BASELINE config 1; reference setup_p1d 1-D
-    # engines, offt-compute.c:329-489.
+    # (n1, n2) matrix view of the distributed long-1-D engine
+    # (dist/long1d.py, degenerate (1, 1, N) plans on a mesh): N = n1 * n2
+    # with the device count dividing both; None = auto (balanced).
     split_1d: Optional[tuple[int, int]] = None
-    # MXU precision for DFT contractions: 'stack6' (contraction-stacked
-    # 6-term bf16 words: the SAME six products as bf16x6 issued as ONE
-    # deep matmul — f32-grade 2e-7 accuracy at ~1/3 the MXU time of
-    # 'highest' on depth-limited radix dots; TPU default) | 'highest'
-    # (bf16x6 passes, 1e-7-grade) | 'default' (single bf16 pass, ~1e-3 —
-    # error-tolerant workloads only). The unfused XLA path additionally
-    # accepts 'high' (bf16x3).
+    # matmul engine only: dot precision. 'highest' keeps fp32 operands
+    # (meets the 1e-6 bar); 'high' and 'default' let XLA use reduced-
+    # precision tensor-core passes (TF32 on the GPU, ~1e-3) for
+    # error-tolerant workloads.
     precision: str = "highest"
 
     def astuple(self) -> tuple:
@@ -182,50 +177,18 @@ def default_params(spec: ProblemSpec, p1: Optional[int] = None) -> PlanParams:
     """Heuristic default point — the analogue of ``params_set_default``
     (offt-compute.c:3127-3225). This is the baseline the tuner must beat
     by >=20% (BASELINE.md). ``p1`` pins the grid factor (a concrete mesh)."""
-    from ..utils import config as _cfg
-
     nx, ny, nz = spec.shape
     if p1 is None:
         cands = p1_candidates(nx, ny, nz, spec.p)
         # prefer near-square grid (balanced all_to_all volume per phase)
         root = int(math.sqrt(spec.p))
         p1 = min(cands, key=lambda d: (abs(d - root), d))
-    # fused Pallas kernels by default on TPU when every axis is 2-stage
-    # expressible (strictly fewer HBM passes than the unfused path);
-    # the use_pallas config key (-1 auto / 0 off / 1 force) overrides
-    up_cfg = int(_cfg.get("use_pallas"))
-    use_pallas = max(up_cfg, 0)
-    if up_cfg < 0 and spec.dtype in ("complex64", "float32"):
-        try:
-            import jax
-            from ..kernels.pallas_fft import can_use_pallas
-            if jax.default_backend() == "tpu":
-                # the z axis may alternatively ride the four-step long-1-D
-                # route (kernels/fourstep.py, last-axis c2c only) — that
-                # is what makes degenerate (1, 1, 2^20) plans fused. Real
-                # transforms run a HALF-length inner c2c (packed even-N
-                # split, kernels/rfft.py), so the gate keys on nz // 2.
-                zok = can_use_pallas(nz)
-                if not zok:
-                    from ..kernels.fourstep import can_use_four_step
-                    if spec.real and nz % 2 == 0:
-                        zok = can_use_four_step(nz // 2)
-                    elif not spec.real:
-                        zok = can_use_four_step(nz)
-                if zok and can_use_pallas(nx) and can_use_pallas(ny):
-                    use_pallas = 1
-        except Exception:
-            pass
-    precision = str(_cfg.get("precision"))
-    if precision == "auto":
-        # stack6 needs the Pallas loop core (bf16 stacked tables); the
-        # pure-XLA/stockham path and non-TPU backends stay at highest
-        precision = "stack6" if use_pallas else "highest"
     if spec.p == 1:
-        return PlanParams(p1=1, use_pallas=use_pallas, precision=precision)
-    # Distributed defaults by mesh-size class, production-informed like the
-    # reference's params_set_default (offt-compute.c:3127-3225) — receipts:
-    # docs/receipts/knob_sweep_cpu.jsonl + tune_cpu_mesh_summary.jsonl.
+        return PlanParams(p1=1)
+    # Distributed defaults by mesh-size class, like the reference's
+    # params_set_default (offt-compute.c:3127-3225). The evidence is from
+    # the 8-device virtual CPU mesh, not from GPUs: docs/receipts/
+    # knob_sweep_cpu.jsonl + tune_cpu_mesh_summary.jsonl.
     #   p <= 8:  t=4 pipeline chunks win big (2.3x over t=1 at 32x64x256 on
     #            the 2x4 mesh) and w=0 (unbounded in-flight) edges every
     #            bounded window at t=4 (20.1 vs 22.7 ms at w=2).
@@ -242,8 +205,7 @@ def default_params(spec: ProblemSpec, p1: Optional[int] = None) -> PlanParams:
         t2 = min(4, max(1, spec.nz_freq // max(p2, 1)))
     if spec.inverse:   # the inverse pipeline chunks z in phase 1, x in phase 2
         t1, t2 = t2, t1
-    return PlanParams(p1=p1, t1=t1, t2=t2, w1=0, w2=0,
-                      use_pallas=use_pallas, precision=precision)
+    return PlanParams(p1=p1, t1=t1, t2=t2, w1=0, w2=0)
 
 
 def infeasible_reason(spec: ProblemSpec, params: PlanParams) -> Optional[str]:
@@ -283,20 +245,18 @@ def infeasible_reason(spec: ProblemSpec, params: PlanParams) -> Optional[str]:
         return "v outside [0,3]"
     if params.rankorder not in (0, 1, 2):
         return "rankorder outside {0,1,2}"
-    if params.slab_rows not in (0, 1, 2, 4, 8, 16):
-        return "slab_rows outside {0,1,2,4,8,16}"
-    if params.precision not in ("default", "high", "highest", "stack6",
-                                "stack3"):
+    if params.engine not in ENGINES:
+        return f"engine {params.engine!r} unknown (one of {ENGINES})"
+    if params.precision not in PRECISIONS:
         return f"precision {params.precision!r} unknown"
-    if params.precision == "high" and params.use_pallas:
-        return "precision 'high' unsupported by Mosaic (use stack6/highest)"
-    if params.precision in ("stack6", "stack3") and not params.use_pallas:
-        # the stacked modes are Pallas-kernel modes (contraction-stacked
-        # bf16 tables); the unfused XLA path would silently run
-        # 'highest', making (use_pallas=0, stack*) a duplicate search
-        # point of (use_pallas=0, highest) — reject so the tuner never
-        # samples it
-        return f"precision {params.precision!r} requires use_pallas=1"
+    if params.engine == ENGINE_XLA and (
+            params.precision != "highest"
+            or any(r is not None for r in (params.radix_z, params.radix_y,
+                                           params.radix_x))):
+        # radices and dot precision are matmul-engine knobs; with the XLA
+        # engine they would be duplicate search points of the default
+        return ("radix_*/precision apply only to engine "
+                f"{ENGINE_MATMUL!r}")
     # buffer ceiling, reference BUFFER_SIZE_LIMIT (offt-tuning.c:170,183):
     # per-device working set of one pipelined chunk x window depth. Only
     # meaningful for distributed plans (local plans have no comm buffers).
@@ -318,36 +278,14 @@ def infeasible_reason(spec: ProblemSpec, params: PlanParams) -> Optional[str]:
                 prod *= r
             if prod != n or any(r > dft.MAX_RADIX for r in rad):
                 return f"radices {rad} invalid for N={n}"
-            # Pallas core limits (<=3 stages; 3-stage radices in
-            # [2, LOOP_MAX_RADIX], mirroring pallas_fft._pick_stages).
-            # Only binding when the fused kernels are requested — the
-            # unfused stockham path runs any <=MAX_RADIX factorization.
-            if params.use_pallas:
-                if len(rad) > 3:
-                    return f"radices {rad}: more than 3 kernel stages"
-                if len(rad) == 3 and (max(rad) > dft.LOOP_MAX_RADIX
-                                      or min(rad) < 2):
-                    return (f"radices {rad}: 3-stage radices must be in "
-                            f"[2, {dft.LOOP_MAX_RADIX}]")
     if params.split_1d is not None:
-        from ..kernels.fourstep import pick_split
-        if spec.real or (nx, ny) != (1, 1):
-            return "split_1d applies only to degenerate (1, 1, N) c2c plans"
-        if pick_split(nz, params.split_1d) is None:
-            return (f"split_1d {params.split_1d} invalid for N={nz} "
-                    "(product or kernel expressibility)")
-    if params.x_tile is not None:
-        ty, tz = params.x_tile
-        # the x kernel's lane extent: M = nz/2 for real transforms
-        # (packed half-spectrum), nz for c2c
-        lanes = nz // 2 if spec.real else nz
-        if ny % ty or lanes % tz or tz % 128:
-            return f"x_tile {params.x_tile} illegal for ({ny},{lanes})"
-        # working set must fit the raised scoped-vmem cap; import the
-        # kernel's own constants lazily so they cannot drift
-        from ..kernels.pallas_fft import _VMEM_CAP, _X_VMEM_BLOCKS
-        if _X_VMEM_BLOCKS * nx * ty * tz * 4 + (4 << 20) > _VMEM_CAP:
-            return f"x_tile {params.x_tile} exceeds VMEM at nx={nx}"
+        from ..dist.long1d import pick_split
+        if (nx, ny) != (1, 1):
+            return "split_1d applies only to degenerate (1, 1, N) plans"
+        # real transforms run the half-length c2c core
+        m = nz // 2 if spec.real else nz
+        if pick_split(m, params.split_1d) is None:
+            return f"split_1d {params.split_1d} invalid for N={m}"
     return None
 
 

@@ -14,6 +14,11 @@ Example (tuna.c's canonical synth example):
 
 Also usable to tune a jitted function exposed by a Python module via
 --pyfn module:function (called with the point as kwargs, returns seconds).
+
+One process per card: in command mode each trial runs in a child, one at
+a time, and this parent never touches a device (importing jax is
+harmless; using a device reserves most of the card's memory, which the
+child then could not get).
 """
 
 from __future__ import annotations
@@ -58,7 +63,11 @@ def _parse_var(spec: str, kind: str) -> Dimension:
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="offt-tune", description="generic black-box tuner (tuna parity)")
+        prog="offt-tune",
+        description="generic black-box tuner (tuna parity). In command "
+                    "mode trials run one at a time in child processes and "
+                    "this process never touches a GPU, so each child can "
+                    "take the whole card.")
     p.add_argument("-i", action="append", default=[], metavar="name:lo:hi[:step]",
                    help="integer variable")
     p.add_argument("-f", action="append", default=[], metavar="name:lo:hi:step",
@@ -85,6 +94,8 @@ def main(argv=None):
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="-- command template with %%name substitutions")
     ns = p.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     dims = ([_parse_var(s, "int") for s in ns.i]
             + [_parse_var(s, "real") for s in ns.f]

@@ -53,7 +53,7 @@ def hybrid_initial_simplex(
 
     # biased random rest: favour the low half of tile/window grids (the
     # cache-informed sub-ranges of the reference) and any-of for the rest
-    low_biased = {"t1", "t2", "w1", "w2", "block_batch"}
+    low_biased = {"t1", "t2", "w1", "w2"}
     while len(pts) < size:
         pt = []
         for d in space.dims:

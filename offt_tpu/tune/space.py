@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 
 from ..kernels import dft
 from ..plan.params import (
+    ENGINES,
     PlanParams,
     ProblemSpec,
     infeasible_reason,
@@ -183,11 +184,10 @@ class SearchSpace:
 
 
 def _radix_candidates(n: int, limit: int = 12) -> tuple:
-    """A few good factorizations of n: the balanced default plus greedy
-    largest-first and some near-balanced alternates. Both orders of each
-    2-factor split are included — stage order matters (under stack6,
-    r1=8/r2=32 measured 14% faster than either (16,16) or (32,8) at
-    256^3 on v5e: stage A becomes one full-depth MXU pass)."""
+    """A few good factorizations of n for the matmul engine: the balanced
+    default plus greedy largest-first and some near-balanced alternates.
+    Both orders of each 2-factor split are included (stage order changes
+    which matmul carries the larger contraction)."""
     if n <= 1:
         return (None,)
     cands = [None, dft.factorize(n)]  # None = library default
@@ -206,11 +206,8 @@ def _radix_candidates(n: int, limit: int = 12) -> tuple:
             cands.append((n // a, a))
             if a != n // a:
                 cands.append((a, n // a))
-    # near-balanced 3-stage splits (generalized core): fewer MXU passes
-    # per stage under stack6 when 2-stage radices exceed ~128/12 depth
-    # (512=(8,8,8): 3 passes vs (16,32): 5); all radices must be <=32
-    # (loop-core bound) and small-first ordering preferred (stage A is
-    # one full-depth pass when 12*r1 >= 128 fails -> keep r1 smallest).
+    # near-balanced 3-stage splits, small radix first: fewer MACs per
+    # element than the 2-stage split at the cost of one more pass
     c = round(n ** (1 / 3))
     for a in sorted({c - 1, c, c + 1, 2, 4, 8}):
         if a < 2 or n % a or a > 32:
@@ -227,32 +224,26 @@ def _radix_candidates(n: int, limit: int = 12) -> tuple:
 
 
 def _split1d_candidates(spec, limit: int = 8) -> tuple:
-    """Candidate (n1, n2) four-step splits for a degenerate (1, 1, N) c2c
-    spec where the fused 2-stage kernel does not apply. None = the module
-    auto-pick (balanced, lane-multiple-preferring). Distributed specs
-    (p > 1) only emit P-divisible pairs — others would silently fall
-    back to the degenerate single-device path (dist/long1d.py), a
-    wasted trial measuring a different engine."""
-    from ..kernels import fourstep
-    from ..kernels import pallas_fft as pf
+    """Candidate (n1, n2) matrix views for the distributed long-1-D engine
+    (a degenerate (1, 1, N) c2c plan on a mesh, dist/long1d.py). None =
+    the auto pick. Only P-divisible pairs are offered: the engine shards
+    both matrix axes, and any other pair would silently fall back to the
+    degenerate pencil path — a wasted trial measuring another engine."""
+    from ..dist.long1d import pick_split
 
     n = spec.shape[2]
-    div = spec.p if spec.p > 1 else 1
-    if (spec.real or (div == 1 and pf.can_use_pallas(n))
-            or fourstep.pick_split(n, divisor=div) is None):
+    if spec.real or spec.p <= 1 or pick_split(n, divisor=spec.p) is None:
         return (None,)
     cands = [None]
     for d in range(2, int(n ** 0.5) + 1):
         if n % d:
             continue
         for n1, n2 in ((d, n // d), (n // d, d)):
-            sp = fourstep.pick_split(n, (n1, n2), divisor=div)
+            sp = pick_split(n, (n1, n2), divisor=spec.p)
             if sp is not None and sp not in cands:
                 cands.append(sp)
-    # keep the most lane-friendly few: full lane tiles first, balanced next
-    cands[1:] = sorted(cands[1:],
-                       key=lambda s: (0 if s[1] % 128 == 0 else 1,
-                                      abs(s[1] - s[0])))[:limit - 1]
+    # keep the most balanced few
+    cands[1:] = sorted(cands[1:], key=lambda s: abs(s[1] - s[0]))[:limit - 1]
     return tuple(cands)
 
 
@@ -261,10 +252,9 @@ def build_space(
     fixed_p1: Optional[int] = None,
     include_radix: bool = True,
     max_tile: int = 32,
-    include_pallas: Optional[bool] = None,
     constraints: tuple[str, ...] = (),
 ) -> SearchSpace:
-    """The TPU plan search space (SURVEY.md §2c surviving-knob mapping)."""
+    """The plan search space (SURVEY.md §2c surviving-knob mapping)."""
     nx, ny, nz = spec.shape
     nzf = spec.nz_freq
     p = spec.p
@@ -288,56 +278,23 @@ def build_space(
         dims.append(Dimension("s1", (0, 1)))
         dims.append(Dimension("s2", (0, 1)))
         dims.append(Dimension("v", (0, 1, 2, 3)))
-        # device->grid assignment (ROTATE_RANKORDER analogue): auto
-        # (topology-aware / mesh-as-given) vs the two explicit orders
+        # device->grid assignment (ROTATE_RANKORDER analogue): mesh as
+        # given vs the two explicit orders
         dims.append(Dimension("rankorder", (0, 1, 2)))
+    # the local engine: XLA's FFT or the matmul chain, offered on every
+    # backend
+    dims.append(Dimension("engine", ENGINES))
     if include_radix:
+        # matmul-engine radices (infeasible with the XLA engine, so those
+        # points are rejected before they are timed)
         dims.append(Dimension("radix_z", _radix_candidates(nz if not spec.real
                                                            else nz // 2)))
         dims.append(Dimension("radix_y", _radix_candidates(ny)))
         dims.append(Dimension("radix_x", _radix_candidates(nx)))
-        # four-step split for long degenerate 1-D c2c plans (the route in
-        # kernels/fourstep.py, BASELINE config 1): which (n1, n2) matrix
-        # view the length-n vector takes. Reference analogue: FFTW's own
-        # sub-plan choice inside setup_p1d (offt-compute.c:329-489).
-        s1d = _split1d_candidates(spec) if (nx, ny) == (1, 1) else (None,)
-        if len(s1d) > 1:
-            dims.append(Dimension("split_1d", s1d))
-    if include_pallas is None:
-        try:
-            import jax
-            include_pallas = jax.default_backend() == "tpu"
-        except Exception:
-            include_pallas = False
-    if include_pallas and spec.dtype in ("complex64", "float32"):
-        dims.append(Dimension("use_pallas", (0, 1)))
-        # Pallas block shape (lanes for sublane kernels / rows for the
-        # last-axis kernel); 0 = built-in heuristic
-        dims.append(Dimension("block_batch", (0, 128, 256, 512, 1024)))
-        # x-rows per fused (y,z)-slab block; 0 = measured-best heuristic
-        dims.append(Dimension("slab_rows", (0, 1, 2, 4, 8)))
-        # stride-padded x-kernel tile; None = (8,128) measured-best.
-        # Only searched when the padded-x path is actually reachable:
-        # r2c/c2r always routes x through it (on M = nz/2 lanes); c2c
-        # needs a row stride DIVISIBLE by 64 KiB — the widened gate
-        # (768^2*4 = 2^18*9 serializes HBM channels like an exact pow2;
-        # kernels/pallas_fft.py fft3d_planar stride % (1 << 16) == 0).
-        ny_, nz_ = spec.shape[1], spec.shape[2]
-        lanes = nz_ // 2 if spec.real else nz_
-        stride = ny_ * nz_ * 4
-        reachable = spec.real or stride % (1 << 16) == 0
-        xt = [None] + [(ty, tz) for ty, tz in ((4, 128), (16, 128), (8, 256))
-                       if reachable and ny_ % ty == 0 and lanes % tz == 0]
-        if len(xt) > 1:
-            dims.append(Dimension("x_tile", tuple(xt)))
-        # MXU precision for the radix dots, both f32-grade (1e-6 bar):
-        # stack6 = contraction-stacked bf16 words, ~3x less MXU time.
-        # "stack3" (half the stacked depth, ~2e-5) and "default" (one
-        # bf16 pass, 5e-3) are deliberately NOT search points: the tuner
-        # scores time only, so an accuracy-trading mode would always win
-        # while silently breaking the 1e-6 bar — they stay explicit
-        # opt-ins via PlanParams(precision=...).
-        dims.append(Dimension("precision", ("stack6", "highest")))
+    # (n1, n2) view of the distributed long-1-D engine (dist/long1d.py)
+    s1d = _split1d_candidates(spec) if (nx, ny) == (1, 1) else (None,)
+    if len(s1d) > 1:
+        dims.append(Dimension("split_1d", s1d))
     return SearchSpace(spec=spec, dims=tuple(dims),
                        constraints=tuple(constraints))
 

@@ -23,12 +23,6 @@ DEFAULTS: dict[str, Any] = {
     "prefetch_count": 4,          # Tuner batch (PREFETCH_COUNT analogue)
     "server_host": "127.0.0.1",
     "server_port": 1979,
-    # kernels. precision "auto" resolves per-backend in default_params:
-    # "stack6" (contraction-stacked 6-term bf16, f32-grade accuracy at
-    # ~1/3 the MXU time — see kernels/pallas_fft.py) on TPU, else
-    # "highest" (for the pure-XLA matmul path "high"/bf16x3 also exists)
-    "precision": "auto",
-    "use_pallas": -1,             # -1 = auto (TPU + expressible)
     # paths
     "cache_dir": "",              # "" = ~/.cache/offt_tpu
 }

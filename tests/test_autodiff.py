@@ -1,4 +1,4 @@
-"""Autodiff through plans (plan/autodiff.py).
+"""Autodiff through plans (native: every pipeline is plain JAX).
 
 Two kinds of evidence:
 
@@ -9,7 +9,7 @@ Two kinds of evidence:
    this holds for every correct vjp regardless of layout conventions
    (packed, planar, distributed), with no external reference needed.
 
-The reference has no autodiff analogue (MPI/C); this is TPU-first API
+The reference has no autodiff analogue (MPI/C); this is JAX-side API
 surface (jax.grad for spectral losses / neural operators).
 """
 
@@ -33,9 +33,13 @@ def _randc(shape, seed, dtype=np.complex128):
 
 
 def _dot_tree(a, b):
-    """Real inner product over a pytree of real arrays."""
+    """Real inner product over a pytree of real arrays, accumulated in
+    float64 (the identity under test is the transpose's, not that of a
+    float32 sum)."""
     la, lb = jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)
-    return sum(jnp.vdot(x, y).real for x, y in zip(la, lb))
+    return sum(np.vdot(np.asarray(x).astype(np.complex128),
+                       np.asarray(y).astype(np.complex128)).real
+               for x, y in zip(la, lb))
 
 
 # ---------------------------------------------------------------------------
@@ -130,11 +134,26 @@ def _check_transpose(f, args, seed=7, tol=1e-6):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("norm", ["backward", "ortho", "forward"])
 def test_transpose_c2c_planar(inverse, norm):
+    """complex64 on the matmul engine, whose transpose replays the same
+    matmuls and so holds the identity to 1e-6 in float32 (the XLA engine's
+    transpose is an independent FFT call: checked in complex128 below)."""
+    from offt_tpu.plan.params import PlanParams
+
     p = offt_tpu.plan((16, 8, 8), "complex64", inverse=inverse, norm=norm,
-                      planar=True)
+                      planar=True, params=PlanParams(engine="matmul"))
     re = jnp.asarray(_rand((16, 8, 8), 8, np.float32))
     im = jnp.asarray(_rand((16, 8, 8), 9, np.float32))
     _check_transpose(lambda r, i: p((r, i)), (re, im))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("norm", ["backward", "ortho", "forward"])
+def test_transpose_c2c_planar_xla_fp64(inverse, norm):
+    p = offt_tpu.plan((16, 8, 8), "complex128", inverse=inverse, norm=norm,
+                      planar=True)
+    re = jnp.asarray(_rand((16, 8, 8), 8))
+    im = jnp.asarray(_rand((16, 8, 8), 9))
+    _check_transpose(lambda r, i: p((r, i)), (re, im), tol=1e-12)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -159,9 +178,8 @@ def test_transpose_irfft_planar(packed):
 
 
 def test_transpose_irfft_complex_nonplanar_fused():
-    """complex64 non-planar irfft routes through the fused local
-    pipeline (_local_fft3d -> Pallas): wrapped with the pack^T rule
-    under JAX's complex conj convention."""
+    """complex64 non-planar irfft through the local pipeline: the
+    transpose identity holds under JAX's complex conj convention."""
     shape = (16, 16, 256)
     p = offt_tpu.plan(shape, "complex64", real=True, inverse=True)
     f = jnp.asarray(_randc((16, 16, 129), 21, np.complex64))
@@ -215,7 +233,7 @@ def test_transpose_distributed_rfft():
 
 def test_grad_distributed_irfft_native():
     """Distributed fp64 c2r plans are pure-jnp pipelines — native
-    autodiff (no wrapper) must match the local grad."""
+    autodiff must match the local grad."""
     mesh = make_mesh(2, 4)
     f = jnp.asarray(_randc((16, 16, 9), 19))
     w = jnp.asarray(_rand((16, 16, 16), 20))
@@ -232,9 +250,8 @@ def test_grad_distributed_irfft_native():
 
 
 def test_transpose_distributed_irfft_c64():
-    """Distributed complex64 c2r: wrapped with the shared even/odd
-    untangle transpose (the distributed z-stage is irfft_1d /
-    icrfft_last — same algebra as the fused local pipeline)."""
+    """Distributed complex64 c2r: the transpose identity through the
+    pencil pipeline's c2r z-stage."""
     mesh = make_mesh(2, 4)
     p = offt_tpu.plan((16, 16, 16), "complex64", real=True, inverse=True,
                       mesh=mesh)
@@ -285,7 +302,7 @@ def test_transpose_distributed_irfft_planar_c64(packed):
 
 
 def test_jvp_native_fp64():
-    """Pallas-free plans are NOT wrapped, so forward-mode works."""
+    """Plans differentiate natively, so forward mode works."""
     p = offt_tpu.plan((8, 8, 8), "complex128")
     x = jnp.asarray(_randc((8, 8, 8), 23))
     dx = jnp.asarray(_randc((8, 8, 8), 24))
@@ -295,10 +312,7 @@ def test_jvp_native_fp64():
 
 
 def test_odd_n_c64_c2r_grad():
-    """Odd-N complex64 c2r: default_params disables Pallas for shapes
-    the fused kernels can't take, so the plan is unwrapped and native
-    autodiff handles it (the NotImplementedError wrapper only fires
-    for explicit use_pallas=1 odd-N configs)."""
+    """Odd-N complex64 c2r: native autodiff (no Nyquist bin)."""
     p = offt_tpu.plan((8, 8, 7), "complex64", real=True, inverse=True)
     f = jnp.asarray(_randc((8, 8, 4), 25, np.complex64))
 
@@ -333,8 +347,8 @@ def test_grad_under_jit_composes():
 
 @pytest.mark.parametrize("trial", range(5))
 def test_fuzz_transpose_wrapped_c64(trial):
-    """Random eligible shapes x direction x norm through the WRAPPED
-    (Pallas, complex64) paths: the transpose identity must hold."""
+    """Random shapes x direction x norm x engine (complex64 planar): the
+    transpose identity must hold."""
     from offt_tpu.plan.params import PlanParams
 
     rng = np.random.default_rng(4200 + trial)
@@ -342,7 +356,7 @@ def test_fuzz_transpose_wrapped_c64(trial):
     shape = tuple(int(rng.choice(dims)) for _ in range(3))
     inverse = bool(rng.integers(0, 2))
     norm = [None, "ortho", "forward"][int(rng.integers(0, 3))]
-    pp = PlanParams(use_pallas=1, precision="stack6")
+    pp = PlanParams(engine=("xla", "matmul")[trial % 2])
     p = offt_tpu.plan(shape, "complex64", inverse=inverse, norm=norm,
                       planar=True, params=pp)
     re = jnp.asarray(_rand(shape, 100 + trial, np.float32))
@@ -351,14 +365,13 @@ def test_fuzz_transpose_wrapped_c64(trial):
 
 
 def test_transpose_irfft_odd_n_wrapped_c64():
-    """Odd-N complex64 c2r WITH Pallas on (the wrapped path): the
-    Hermitian-extension transpose (forward rfft, flipped norm, interior
-    doubling, no pack) — previously a clear NotImplementedError."""
+    """Odd-N complex64 c2r on the matmul engine: the transpose identity
+    through its Hermitian-extension pipeline."""
     for shape, nf in (((8, 8, 7), 4), ((16, 16, 27), 14)):
         base = offt_tpu.plan(shape, "complex64", real=True,
                              inverse=True).params
         p = offt_tpu.plan(shape, "complex64", real=True, inverse=True,
-                          params=base.replace(use_pallas=1))
+                          params=base.replace(engine="matmul"))
         f = jnp.asarray(_randc(shape[:-1] + (nf,), 41, np.complex64))
         _check_transpose(lambda re, im: p(jax.lax.complex(re, im)),
                          (jnp.real(f), jnp.imag(f)), tol=1e-4)
@@ -386,9 +399,9 @@ def test_grad_odd_n_c2r_composite_matches_numpy():
     k = jnp.asarray(np.exp(-10 * (fx**2 + fy**2 + fz**2)).astype(np.float32))
     bf = offt_tpu.plan(shape, "complex64", real=True).params
     pf = offt_tpu.plan(shape, "complex64", real=True,
-                       params=bf.replace(use_pallas=1))
+                       params=bf.replace(engine="matmul"))
     pi = offt_tpu.plan(shape, "complex64", real=True, inverse=True,
-                       params=bf.replace(use_pallas=1))
+                       params=bf.replace(engine="matmul"))
     g1 = jax.grad(lambda v: jnp.sum(pi(pf(v) * k) ** 2))(x)
     g2 = jax.grad(lambda v: jnp.sum(
         jnp.fft.irfftn(jnp.fft.rfftn(v) * k, s=shape) ** 2))(x)
@@ -397,9 +410,8 @@ def test_grad_odd_n_c2r_composite_matches_numpy():
 
 
 def test_jvp_wrapped_planar_c2c():
-    """Forward mode through Pallas-wrapped PLANAR plans (linear_call:
-    the jvp of a linear map is the map itself). Was impossible under
-    custom_vjp."""
+    """Forward mode through PLANAR plans (the jvp of a linear map is the
+    map itself)."""
     p = offt_tpu.plan((16, 8, 8), "complex64", planar=True)
     re = jnp.asarray(_rand((16, 8, 8), 51, np.float32))
     im = jnp.asarray(_rand((16, 8, 8), 52, np.float32))
@@ -412,8 +424,7 @@ def test_jvp_wrapped_planar_c2c():
 
 
 def test_jvp_wrapped_complex_c2c_and_grad_of_grad():
-    """Complex c2c via linear_call: jvp works, and second-order AD is
-    exact (the transpose of linear_call(f, fT) is linear_call(fT, f))."""
+    """Complex c2c: jvp works, and second-order AD is exact."""
     pc = offt_tpu.plan((8, 8, 8), "complex64")
     x = jnp.asarray(_randc((8, 8, 8), 55, np.complex64))
     tx = jnp.asarray(_randc((8, 8, 8), 56, np.complex64))
@@ -470,8 +481,7 @@ def test_jvp_wrapped_distributed_planar():
 
 
 def test_vmap_and_vmap_of_grad_compose():
-    """jax.vmap (and vmap∘grad) through a wrapped planar plan — the
-    linear_call wrapper inherits batching from its operands."""
+    """jax.vmap (and vmap∘grad) through a planar plan."""
     p = offt_tpu.plan((8, 8, 8), "complex64", planar=True)
     re = jnp.asarray(_rand((3, 8, 8, 8), 71, np.float32))
     im = jnp.asarray(_rand((3, 8, 8, 8), 72, np.float32))

@@ -69,14 +69,13 @@ def test_dist1d_exchange_strategies(s1, s2, v):
 
 
 def test_dist1d_fused_kernels_2pow20():
-    """The fused two-kernel local path (every LOCAL extent a 128
-    multiple): n = 2^20 on 8 devices -> (1024, 1024) split, local
-    shards 128 wide on both exchanges. x64 is on in this suite, so
-    this also pins the _f32_trace guard on the step kernels."""
+    """n = 2^20 on 8 devices -> (1024, 1024) split, on the matmul
+    engine (the default engine runs every other dist-1d test). x64 is
+    on in this suite: complex64 must stay complex64."""
     mesh = make_mesh(2, 4)
     n = 1 << 20
     x = _cx(np.random.default_rng(4), n).reshape(1, 1, n)
-    pp = PlanParams(use_pallas=1, precision="stack6")
+    pp = PlanParams(p1=2, engine="matmul")
     p = plan((1, 1, n), "complex64", mesh=mesh, params=pp)
     got = np.asarray(p(x))[0, 0]
     want = np.fft.fft(x[0, 0])
@@ -137,9 +136,8 @@ def test_dist1d_split_divisibility_gate():
     """dist1d_split requires P | n1 and P | n2; an explicit split_1d
     violating that falls back (plan still works, degenerate pencil)."""
     mesh = make_mesh(2, 4)
-    # 2^12 with P=8: a P-divisible pair exists (picker prefers the
-    # 128-multiple lane extent: (32, 128))
-    assert dist1d_split(mesh, 4096, PlanParams()) == (32, 128)
+    # 2^12 with P=8: a P-divisible pair exists (the most balanced one)
+    assert dist1d_split(mesh, 4096, PlanParams()) == (64, 64)
     # explicit split with n1 not divisible by 8 -> ineligible
     assert dist1d_split(mesh, 4096, PlanParams(split_1d=(4, 1024))) is None
     # prime-ish length with no valid pair -> ineligible, plan falls back
@@ -208,13 +206,14 @@ def test_dist1d_irfft_packed_roundtrip_and_norms():
 
 
 def test_dist1d_rfft_fused_long():
-    """Long real transform (n = 2^21 -> half-length 2^20 rides the FUSED
-    distributed four-step on 8 devices) + c2r roundtrip."""
+    """Long real transform (n = 2^21 -> half-length 2^20 rides the
+    distributed four-step on 8 devices, matmul engine) + c2r
+    roundtrip."""
     mesh = make_mesh(2, 4)
     n = 1 << 21
     x = np.random.default_rng(22).standard_normal(n).astype(
         np.float32).reshape(1, 1, n)
-    pp = PlanParams(use_pallas=1, precision="stack6")
+    pp = PlanParams(p1=2, engine="matmul")
     p = plan((1, 1, n), "complex64", mesh=mesh, real=True, planar=True,
              packed=True, params=pp)
     yr, yi = p(x)
@@ -288,14 +287,14 @@ def test_dist1d_space_candidates_are_p_divisible():
     spec1 = ProblemSpec(shape=(1, 1, 4096), p=1)
     assert _split1d_candidates(spec1) == (None,)
     # ... but the SAME length distributed has candidates (the dist
-    # engine shards lengths the local fused kernel could handle alone)
+    # engine shards lengths one device could handle alone)
     spec8 = ProblemSpec(shape=(1, 1, 4096), p=8)
     assert len(_split1d_candidates(spec8)) > 1
 
 
 def test_dist1d_autodiff():
-    """grad flows through the distributed 1-D plan (linear-adjoint rule,
-    plan/autodiff.py) — the adjoint plan routes through the same engine."""
+    """grad flows through the distributed 1-D plan (native autodiff
+    through the shard_map'd engine)."""
     import jax
     import jax.numpy as jnp
     mesh = make_mesh(2, 4)

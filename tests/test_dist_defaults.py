@@ -1,18 +1,14 @@
-"""Distributed defaults + bundled mesh-keyed wisdom (VERDICT r4 #2).
+"""Distributed defaults (VERDICT r4 #2).
 
 The reference's heuristic point is production-informed
 (``params_set_default``, offt-compute.c:3127-3225). Here the p>1 defaults
 encode the CPU-mesh receipts (docs/receipts/knob_sweep_cpu.jsonl,
-tune_cpu_mesh_summary.jsonl) and the receipted tuned winners ship as
-mesh-keyed bundled wisdom that ``plan(mesh=...)`` picks up with no
-explicit params.
+tune_cpu_mesh_summary.jsonl); explicit params and ``use_cache=False``
+always win over any cached point.
 """
-
-import numpy as np
 
 import offt_tpu
 from offt_tpu.dist import make_mesh
-from offt_tpu.plan import cache
 from offt_tpu.plan.params import PlanParams, ProblemSpec, default_params
 
 
@@ -35,38 +31,6 @@ def test_default_tiny_extent_clamps_tiles():
     # tiles stay bounded by the per-device extents on the small-mesh class
     d = default_params(ProblemSpec(shape=(8, 8, 8), p=8), p1=4)
     assert 1 <= d.t1 <= 2 and 1 <= d.t2 <= 4
-
-
-def test_bundled_wisdom_has_mesh_keys():
-    db = cache._bundled()
-    dist = [k for k in db if "|1x1|" not in k]
-    assert len(dist) >= 9, dist
-    # every bundled distributed row must still deserialize + be feasible
-    from offt_tpu.plan.params import infeasible_reason
-    for k in dist:
-        shape = tuple(int(v) for v in k.split("|")[0].split("x"))
-        p1, p2 = (int(v) for v in k.split("|")[3].split("x"))
-        params = cache._params_from_json(db[k]["params"])
-        spec = ProblemSpec(shape=shape, dtype=k.split("|")[1], p=p1 * p2)
-        assert infeasible_reason(spec, params) is None, (k, params)
-
-
-def test_plan_on_mesh_picks_bundled_wisdom():
-    """plan(mesh=...) with no explicit params consults the mesh-keyed
-    bundled cache: the 16^3 entry's tuned point (phase-1 ring + gather,
-    1.18x over the old default on this very mesh) is picked, not the
-    heuristic."""
-    mesh = make_mesh(2, 4)
-    p = offt_tpu.plan((16, 16, 16), "complex64", mesh=mesh)
-    assert (p.params.t1, p.params.t2) == (2, 1)
-    assert p.params.s1 == 1 and p.params.v == 1
-    # and it computes the right transform
-    x = (np.random.default_rng(0).standard_normal((16, 16, 16))
-         + 1j * np.random.default_rng(1).standard_normal((16, 16, 16))
-         ).astype(np.complex64)
-    got = np.asarray(p(x))
-    want = np.fft.fftn(x)
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5
 
 
 def test_explicit_params_beat_wisdom():

@@ -70,22 +70,3 @@ def test_rfft2d_distributed(rng):
     assert _relerr(np.asarray(y), np.fft.rfft2(x)) < 1e-5
     back = offt_tpu.irfft2d(np.asarray(y), mesh=mesh)
     assert _relerr(np.asarray(back), x) < 1e-5
-
-
-def test_fft2d_in_place():
-    """2-D in-place route (nx=1 through the 3-D pipeline): aliased
-    last+sublane kernels, correctness unchanged."""
-    import offt_tpu
-    from offt_tpu.plan.params import PlanParams
-
-    rng = np.random.default_rng(5)
-    x = (rng.standard_normal((256, 256))
-         + 1j * rng.standard_normal((256, 256))).astype(np.complex64)
-    pp = PlanParams(use_pallas=1, precision="stack6")
-    p = offt_tpu.plan((1, 256, 256), "complex64", planar=True,
-                      in_place=True, donate=True, params=pp)
-    yr, yi = p((x.real.copy().reshape(1, 256, 256),
-                x.imag.copy().reshape(1, 256, 256)))
-    got = (np.asarray(yr) + 1j * np.asarray(yi)).reshape(256, 256)
-    want = np.fft.fft2(x)
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5

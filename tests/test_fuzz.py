@@ -48,10 +48,12 @@ SMOOTH = [8, 12, 16, 24, 32, 48, 64, 96, 128]
 
 @pytest.mark.parametrize("trial", range(8))
 def test_fuzz_pallas_fused(trial):
-    """Fused-kernel path fuzz (use_pallas=1, complex64 planar): random
-    smooth shapes, including padded-x-trigger and dual-untangle sizes."""
+    """Engine fuzz (complex64 planar, even trials on the XLA engine, odd
+    ones on the matmul chain): random smooth shapes, plus a pow2 row
+    stride and a long last axis."""
     from offt_tpu.plan.params import PlanParams
 
+    pp = PlanParams(engine=("xla", "matmul")[trial % 2])
     rng = np.random.default_rng(3000 + trial)
     shape = tuple(int(SMOOTH[rng.integers(0, len(SMOOTH))]) for _ in range(3))
     if trial == 6:
@@ -61,19 +63,19 @@ def test_fuzz_pallas_fused(trial):
     x = (rng.standard_normal(shape)
          + 1j * rng.standard_normal(shape)).astype(np.complex64)
     p = offt_tpu.plan(shape, "complex64", planar=True,
-                      params=PlanParams(use_pallas=1), use_cache=False)
+                      params=pp, use_cache=False)
     yr, yi = p((x.real.copy(), x.imag.copy()))
     got = np.asarray(yr) + 1j * np.asarray(yi)
     assert rel_err(got, np.fft.fftn(x)) < 1e-5, shape
     pinv = offt_tpu.plan(shape, "complex64", planar=True, inverse=True,
-                         params=PlanParams(use_pallas=1), use_cache=False)
+                         params=pp, use_cache=False)
     br, bi = pinv((yr, yi))
     assert rel_err(np.asarray(br) + 1j * np.asarray(bi), x) < 1e-5, shape
     # r2c on the same dims when eligible (even z)
     if shape[2] % 2 == 0:
         xr_ = rng.standard_normal(shape).astype(np.float32)
         pr = offt_tpu.plan(shape, "complex64", real=True, planar=True,
-                           params=PlanParams(use_pallas=1), use_cache=False)
+                           params=pp, use_cache=False)
         wr, wi = pr(xr_)
         want = np.fft.rfftn(xr_.astype(np.float64))
         assert rel_err(np.asarray(wr) + 1j * np.asarray(wi), want) < 1e-5, shape

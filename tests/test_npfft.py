@@ -191,7 +191,7 @@ def test_freq_helpers(n):
 
 
 def test_grad_through_npfft(rng):
-    # the namespace rides the differentiable-plan rules (plan/autodiff.py)
+    # the namespace rides differentiable plans
     import jax
     import jax.numpy as jnp
 

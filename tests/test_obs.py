@@ -22,8 +22,9 @@ def test_time_fn_runs():
 
     f = jax.jit(lambda a, b: (a + b, a - b))
     x = jnp.ones((64, 64))
-    t = time_fn(f, (x, x), k_small=1, k_large=3, tries=1)
-    assert t > 0
+    t = time_fn(f, (x, x), reps=3, warmup=1)
+    assert len(t.times) == 3 and t.min > 0
+    assert t.min <= t.median <= t.max and t.spread >= 0
 
 
 def test_breakdown_local():

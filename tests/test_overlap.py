@@ -2,18 +2,18 @@
 
 The reference's whole point is measured comm/compute overlap: its W-window
 software pipeline posts tile i's nonblocking all-to-all while computing
-tile i-W (offt-compute.c:3614-3647). Our TPU re-expression chunks each
+tile i-W (offt-compute.c:3614-3647). Our re-expression chunks each
 phase into t1/t2 per-chunk collectives and bounds in-flight chunks with an
 optimization_barrier window (dist/pencil.py pencil_pipeline).
 
-What can be *proven* without multi-chip TPU hardware:
+What can be *proven* without several GPUs:
 - the chunking is real: the compiled module contains exactly t1 + t2
   all-to-all ops (one per chunk), not one fused exchange;
 - compute interleaves with the chunk collectives in program order (each
   chunk's local FFT work sits between neighbouring chunks' exchanges);
 - the w knob materializes as optimization_barrier ops in the lowered
-  module (the compiled CPU module drops them after scheduling; on TPU the
-  async scheduler uses them to bound in-flight collectives).
+  module (the compiled CPU module drops them after scheduling; on the GPU
+  the async scheduler uses them to bound in-flight collectives).
 
 The wall-clock w/s sweep on the 8-device CPU mesh lives in
 docs/receipts/overlap_sweep_cpu.jsonl (relative numbers only — CPU has no

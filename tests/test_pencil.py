@@ -221,7 +221,7 @@ def test_distributed_packed_rfft():
     """Distributed packed r2c: the frequency axis stays at M = Nz/2
     aligned lanes through both exchanges (no Nyquist padding) and the
     roundtrip with the packed c2r plan is exact."""
-    from offt_tpu.kernels.pallas_fft import unpack_rfft3d
+    from offt_tpu.kernels.rfft import unpack_rfft3d
 
     mesh = make_mesh(2, 4)
     shape = (16, 16, 32)
@@ -239,34 +239,3 @@ def test_distributed_packed_rfft():
                         inverse=True, planar=True, packed=True)
     back = inv((yr, yi))
     assert rel_err(np.asarray(back), x) < 1e-5
-
-
-@pytest.mark.parametrize("inverse", [False, True])
-def test_pencil_x_stage_padded_route(inverse, monkeypatch):
-    """The distributed pipeline's local x stage takes the stride-broken
-    padded-x kernel when the per-shard x row stride is 64KiB-divisible
-    (the single-chip gate, pallas_fft.can_use_padded_x; reference hot
-    kernel offt-compute.c:2347-2993). Spy that the route fires AND the
-    result stays exact."""
-    from offt_tpu.kernels import pallas_fft as pf
-
-    calls = []
-    orig = pf.fft_x_from_padded
-
-    def spy(*a, **k):
-        calls.append(tuple(a[0].shape))
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pf, "fft_x_from_padded", spy)
-    mesh = make_mesh(2, 2)
-    shape = (16, 64, 1024)
-    base = offt_tpu.plan(shape, "complex64", mesh=mesh).params
-    params = base.replace(t1=1, t2=1, w1=0, w2=0, use_pallas=1)
-    p = offt_tpu.plan(shape, "complex64", mesh=mesh, inverse=inverse,
-                      params=params)
-    x = rand_c(shape, np.complex64, seed=61)
-    y = p(x)
-    # x-stage shard is (16, 32, 512) -> padded intermediate lanes 512+8
-    assert calls and calls[0][-3:] == (16, 32, 520)
-    want = (np.fft.ifftn(x) if inverse else np.fft.fftn(x))
-    assert rel_err(y, want) < 1e-5

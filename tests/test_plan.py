@@ -17,9 +17,10 @@ from offt_tpu.plan.params import (
 
 def test_plan_cache_roundtrip(tmp_path, monkeypatch):
     monkeypatch.setenv("OFFT_TPU_CACHE_DIR", str(tmp_path))
-    key = cache.plan_key((64, 64, 64), "complex64", False, 2, 4, "TPU v5e")
+    key = cache.plan_key((64, 64, 64), "complex64", False, 2, 4,
+                         "NVIDIA H100 80GB HBM3")
     assert cache.lookup(key) is None
-    p = PlanParams(p1=2, t1=4, radix_z=(8, 8), use_pallas=1)
+    p = PlanParams(p1=2, t1=4, radix_z=(8, 8), engine="matmul")
     cache.store(key, p, perf=1.5)
     got = cache.lookup(key)
     assert got == p
@@ -101,8 +102,13 @@ def test_feasibility_rejections():
     assert infeasible_reason(local, PlanParams()) is None
     # r2c radix_z applies to the half-length transform
     rspec = ProblemSpec(shape=(16, 16, 16), real=True, p=1)
-    assert infeasible_reason(rspec, PlanParams(radix_z=(4, 2))) is None
-    assert infeasible_reason(rspec, PlanParams(radix_z=(4, 4))) is not None
+    mm = PlanParams(engine="matmul")
+    assert infeasible_reason(rspec, mm.replace(radix_z=(4, 2))) is None
+    assert infeasible_reason(rspec, mm.replace(radix_z=(4, 4))) is not None
+    # radices and dot precision are matmul-engine knobs only
+    assert "engine" in infeasible_reason(rspec, PlanParams(radix_z=(4, 2)))
+    assert "engine" in infeasible_reason(rspec, PlanParams(precision="high"))
+    assert "engine" in infeasible_reason(rspec, PlanParams(engine="cufft"))
 
 
 def test_config_layers(tmp_path, monkeypatch):
@@ -124,51 +130,13 @@ def test_config_layers(tmp_path, monkeypatch):
 
 
 def test_plan_key_distinguishes_direction_and_mode():
-    k_fwd = cache.plan_key((64,) * 3, "complex64", False, 2, 4, "v5e")
-    k_inv = cache.plan_key((64,) * 3, "complex64", False, 2, 4, "v5e",
+    kind = "NVIDIA H100 80GB HBM3"
+    k_fwd = cache.plan_key((64,) * 3, "complex64", False, 2, 4, kind)
+    k_inv = cache.plan_key((64,) * 3, "complex64", False, 2, 4, kind,
                            inverse=True)
-    k_bs = cache.plan_key((64,) * 3, "complex64", False, 2, 4, "v5e",
+    k_bs = cache.plan_key((64,) * 3, "complex64", False, 2, 4, kind,
                           batch_sharded=True)
     assert len({k_fwd, k_inv, k_bs}) == 3
-
-
-def test_bundled_tuned_defaults(tmp_path, monkeypatch):
-    """Curated hardware-tuned plans ship with the package: a fresh cache
-    (no local entries) still resolves the bundled 320^3 v5e entry; a
-    local store for the same key takes precedence."""
-    monkeypatch.setenv("OFFT_TPU_CACHE_DIR", str(tmp_path))
-    from offt_tpu.plan import cache
-
-    key = "320x320x320|complex64|c2c|1x1|TPU v5 lite|b1"
-    got = cache.lookup(key)
-    assert got is not None
-    assert got.radix_z == (40, 8) and got.use_pallas == 1
-    override = got.replace(radix_z=(20, 16))
-    cache.store(key, override, perf=1e-9)
-    assert cache.lookup(key).radix_z == (20, 16)
-
-
-def test_bundled_entries_all_load_and_feasible():
-    """Every shipped tuned default parses into PlanParams and passes the
-    structural feasibility predicate for its keyed problem (>= 6 curated
-    hardware-verified entries, VERDICT r2 #6)."""
-    import json
-    import pathlib
-
-    from offt_tpu.plan import cache
-    from offt_tpu.plan.params import ProblemSpec, infeasible_reason
-
-    f = pathlib.Path(cache.__file__).parent / "tuned_defaults.json"
-    db = json.loads(f.read_text())
-    assert len(db) >= 6
-    for key, rec in db.items():
-        params = cache._params_from_json(rec["params"])
-        shape = tuple(int(v) for v in key.split("|")[0].split("x"))
-        p1, p2 = (int(v) for v in key.split("|")[3].split("x"))
-        spec = ProblemSpec(shape=shape, real="r2c" in key, p=p1 * p2,
-                           inverse=key.endswith("|inv"))
-        assert infeasible_reason(spec, params) is None, key
-        assert rec.get("perf") and rec["perf"] > 0, key
 
 
 def test_wisdom_export_import(tmp_path, monkeypatch, capsys):
@@ -181,7 +149,7 @@ def test_wisdom_export_import(tmp_path, monkeypatch, capsys):
     cache.store(key, PlanParams(ry=7), perf=2e-3)
     wf = tmp_path / "wisdom.json"
     n = cache.export_wisdom(wf)
-    assert n == 1  # local-only: bundled entries stay with the package
+    assert n == 1
     import json
     assert set(json.loads(wf.read_text())) == {key}
 

@@ -56,9 +56,19 @@ def test_with_rankorder_regrids_and_is_idempotent():
 
 
 def test_auto_is_topology_aware_fallback():
-    # on CPU there is no torus; AUTO must still produce a full valid grid
+    # AUTO must produce a full valid grid
     m = make_mesh(4, 2)
     assert sorted(_ids(m)) == list(range(8))
+
+
+@pytest.mark.parametrize("p1,p2", [(2, 4), (4, 2), (1, 8), (2, 2)])
+def test_auto_is_row_major(p1, p2):
+    """On one NVLink host every card reaches every other at the same
+    rate, so AUTO is the plain row-major order of the device list."""
+    devs = jax.devices()
+    m = make_mesh(p1, p2)
+    assert [d.id for d in m.devices.flat] == [d.id for d in devs[:p1 * p2]]
+    assert _ids(m) == _ids(make_mesh(p1, p2, rankorder=RANKORDER_ROW))
 
 
 @pytest.mark.parametrize("ro", [RANKORDER_AUTO, RANKORDER_ROW, RANKORDER_COL])

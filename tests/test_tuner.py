@@ -9,7 +9,7 @@ from offt_tpu.tune.space import build_space
 from offt_tpu.tune.strategies import make_strategy
 from offt_tpu.tune.synth import AH_OPTIMUM, ah_quadratic, quadratic_space
 from offt_tpu.tune.tuner import Tuner
-from offt_tpu.plan.params import ProblemSpec
+from offt_tpu.plan.params import PlanParams, ProblemSpec
 
 
 def run_synthetic(strategy_name, max_trials=400, seed=1):
@@ -106,15 +106,18 @@ def test_fft_space_feasibility_filter():
     assert space.infeasible_reason(tuple(pt)) is not None
 
 
-def test_x_tile_searchable_at_widened_stride():
-    """The padded-x gate fires for any row stride divisible by 64 KiB
-    (768^2*4 = 2^18*9 conflicts like an exact pow2 — the round-3 768^3
-    fix); the search space's x_tile reachability must match the kernel
-    gate or the tuner silently never explores the knob there."""
-    for n, want in ((768, True), (256, True), (320, False)):
-        spec = ProblemSpec(shape=(n, n, n), p=1)
-        space = build_space(spec, include_pallas=True)
-        assert ("x_tile" in space.names) == want, n
+def test_engine_dimension_on_every_backend():
+    """The local engine is a search dimension wherever the tuner runs, and
+    a radix point on the XLA engine is rejected before it is timed."""
+    from offt_tpu.plan.params import ENGINES
+
+    space = build_space(ProblemSpec(shape=(16, 16, 16), p=1))
+    assert space.dims[space.names.index("engine")].values == ENGINES
+    pt = list(space.from_params(PlanParams()))
+    pt[space.names.index("radix_z")] = 1       # a concrete factorization
+    assert "engine" in space.infeasible_reason(tuple(pt))
+    pt[space.names.index("engine")] = ENGINES.index("matmul")
+    assert space.infeasible_reason(tuple(pt)) is None
 
 
 def test_tune_end_to_end_tiny_fft(tmp_path, monkeypatch):
